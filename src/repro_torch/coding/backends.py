@@ -3,8 +3,11 @@ interchangeable implementations.
 
 Canonical shapes (the leaf <-> canonical reshaping lives in ``codec.py``):
 
-  encode: G (d, V, m[, R]) x C (d, m)  ->  (V[, R])      (paper eq. 17/18)
-  decode: F (n, V[, R])   x W (n, m)   ->  (V, m[, R])   (paper eq. 19-21)
+  encode:       G (d, V, m[, R]) x C (d, m)  ->  (V[, R])    (paper eq. 17/18)
+  decode:       F (n, V[, R])   x W (n, m)   ->  (V, m[, R]) (paper eq. 19-21)
+  encode_acc:   acc (V[, R]) f32 += encode(G, C), in place
+  decode_apply: F (n, L), W (n, m), P / MU (L, m) f32 -> (p', mu', sum g^2)
+                (the pipelined step's fused decode + SGD-momentum)
 
 Backends:
   ``ref``    — the plain PyTorch versions (f32 accumulate in the kernels'
@@ -24,13 +27,13 @@ import dataclasses
 import torch
 
 from .._device import resolve_device
-from ..kernels.coded_decode import coded_decode, coded_decode_plain
-from ..kernels.coded_encode import coded_encode, coded_encode_plain
+from ..kernels.coded_decode import (coded_decode, coded_decode_apply,
+                                    coded_decode_apply_plain,
+                                    coded_decode_plain)
+from ..kernels.coded_encode import (coded_encode, coded_encode_acc,
+                                    coded_encode_acc_plain, coded_encode_plain)
 
 BACKEND_NAMES = ("auto", "ref", "hopper")
-
-_LATER = ("belongs to the pipelined (stale-by-one) step, which is not "
-          "ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,13 +51,20 @@ class CodecBackend:
         """Decode contraction: F (n, V[, R]) x W (n, m) -> (V, m[, R])."""
         raise NotImplementedError
 
-    def encode_acc(self, acc, G, C):
-        """Accumulating encode ``acc + encode(G, C)``."""
-        raise NotImplementedError(f"encode_acc {_LATER}")
+    def encode_acc(self, acc: torch.Tensor, G: torch.Tensor,
+                   C: torch.Tensor) -> torch.Tensor:
+        """Accumulating encode: ``acc += encode(G, C)`` in place on the f32
+        ``acc`` (V[, R]); returns ``acc``."""
+        raise NotImplementedError
 
-    def decode_apply(self, F, W, P, MU, *, lr, momentum, scale):
-        """Fused decode + SGD-momentum apply over one packed bucket."""
-        raise NotImplementedError(f"decode_apply {_LATER}")
+    def decode_apply(self, F: torch.Tensor, W: torch.Tensor, P: torch.Tensor,
+                     MU: torch.Tensor, *, lr: float, momentum: float,
+                     scale: float):
+        """Fused decode + SGD-momentum apply over one packed bucket:
+        ``g = scale * (F^T W)``, ``mu' = momentum * MU + g``,
+        ``p' = P - lr * mu'``; returns ``(p', mu', sum(g*g))``.  ``P`` and
+        ``MU`` may be overwritten with the results."""
+        raise NotImplementedError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +81,16 @@ class TorchRefBackend(CodecBackend):
         """Plain decode, f32 accumulation, cast to ``out_dtype``."""
         return coded_decode_plain(F, W, out_dtype=out_dtype)
 
+    def encode_acc(self, acc, G, C):
+        """Plain accumulating encode, written back into ``acc``."""
+        return acc.copy_(coded_encode_acc_plain(acc, G, C))
+
+    def decode_apply(self, F, W, P, MU, *, lr, momentum, scale):
+        """Plain decode followed by the SGD-momentum expressions (new
+        tensors; ``P`` and ``MU`` are left as they were)."""
+        return coded_decode_apply_plain(F, W, P, MU, lr=lr,
+                                        momentum=momentum, scale=scale)
+
 
 @dataclasses.dataclass(frozen=True)
 class HopperBackend(CodecBackend):
@@ -85,6 +105,16 @@ class HopperBackend(CodecBackend):
     def decode(self, F, W, *, out_dtype=None):
         """Decode via the ``coded_decode`` CUDA kernel."""
         return coded_decode(F, W, out_dtype=out_dtype)
+
+    def encode_acc(self, acc, G, C):
+        """Accumulate in place via the ``coded_encode_acc`` CUDA kernel."""
+        return coded_encode_acc(acc, G, C)
+
+    def decode_apply(self, F, W, P, MU, *, lr, momentum, scale):
+        """Fuse via the ``coded_decode_apply`` CUDA kernel (overwrites
+        ``P`` and ``MU``)."""
+        return coded_decode_apply(F, W, P, MU, lr=lr, momentum=momentum,
+                                  scale=scale)
 
 
 def resolve_backend(backend: str | CodecBackend | None,

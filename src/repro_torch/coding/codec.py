@@ -4,12 +4,15 @@ A codec binds a gradient code to an aggregation ``Schedule`` and a compute
 ``CodecBackend`` on one device and exposes the phases the train step needs:
 
   plan    — choose each leaf's grouping dimension (``plan_tree``),
-  encode  — fold one subset's gradient into the l/m encoding (eq. 17/18),
+  encode  — fold one subset's gradient into the l/m encoding (eq. 17/18);
+            the pipelined step folds it straight into its wire-bucket slot
+            (``encode_into``),
   wire    — mask stragglers + cast to the wire dtype,
   pack    — lay every coded encoding into bucketed flat wire buffers
             (``packing.py``; static ``PackPlan``, O(1) collectives/bucket),
   decode  — run the schedule's collective choreography + contraction
-            (eq. 19-21),
+            (eq. 19-21); ``decode_apply_packed`` fuses the SGD-momentum
+            update into it,
   unpack  — static slices + ``groups_to_leaf`` back to leaf layouts.
 
 A parameter tree is a flat ``dict[str, Tensor]``; "flat leaves" are its
@@ -26,7 +29,7 @@ from .._device import resolve_device
 from ..comm import Comm
 from .backends import CodecBackend, TorchRefBackend, resolve_backend
 from .layout import flatten_rest, leaf_to_groups, unflatten_rest
-from .packing import (PackPlan, make_pack_plan, pack_bucket,
+from .packing import (LeafSlot, PackPlan, make_pack_plan, pack_bucket,
                       pack_param_groups, unpack_bucket, unpack_param_groups)
 from .plan import LeafPlan, coded_fraction, plan_tree
 from .schedules import Schedule, get_schedule
@@ -37,11 +40,18 @@ if TYPE_CHECKING:
     from ..core.schemes import GradCode
 
 _REF = TorchRefBackend()
-_LATER = ("belongs to the pipelined (stale-by-one) step, which is not "
-          "ported yet")
 
 
 # --------------------------------------------------- functional encode layer
+def _encode_operand(g: torch.Tensor, plan: LeafPlan,
+                    m: int) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """A gradient leaf as the contiguous (1, V, m[, R]) operand of the
+    encode kernels (a leaf grouped on a later dimension comes out of
+    ``leaf_to_groups`` strided), and its trailing ``rest`` dims."""
+    x = leaf_to_groups(g, plan, m)                  # (V, m, *rest)
+    return flatten_rest(x, 2)[None].contiguous(), tuple(x.shape[2:])
+
+
 def encode_leaf(g: torch.Tensor, coef: torch.Tensor, plan: LeafPlan,
                 backend: CodecBackend = _REF) -> torch.Tensor:
     """Fold one subset's gradient leaf into the l/m-sized encoding.
@@ -52,9 +62,7 @@ def encode_leaf(g: torch.Tensor, coef: torch.Tensor, plan: LeafPlan,
     """
     assert plan.coded
     m = coef.shape[0]
-    x = leaf_to_groups(g, plan, m)                  # (V, m, *rest)
-    rest = tuple(x.shape[2:])
-    G = flatten_rest(x, 2)[None]                    # (1, V, m[, R])
+    G, rest = _encode_operand(g, plan, m)
     out = backend.encode(G, coef.reshape(1, m), out_dtype=g.dtype)
     return unflatten_rest(out, 1, rest)             # (V, *rest)
 
@@ -96,9 +104,31 @@ class Codec:
             shape = (shape[k] // self.code.m,) + shape[:k] + shape[k + 1:]
         return torch.zeros(shape, dtype=torch.float32, device=self.device)
 
-    def encode_into(self, buf, g, coef, slot):
-        """Fold a gradient leaf straight into its bucket slot."""
-        raise NotImplementedError(f"Codec.encode_into {_LATER}")
+    # ---- fused encode (encode straight into the wire layout)
+    def bucket_acc_zeros(self, pplan: PackPlan) -> list[torch.Tensor]:
+        """Flat f32 zero accumulators, one per wire bucket: the fused encode
+        fold's carry.  Alignment gaps and the n-divisible tail are never
+        written, so they stay exactly zero on the wire (matching
+        ``pack_bucket``'s explicit zero padding bit for bit)."""
+        return [torch.zeros((b.size,), dtype=torch.float32,
+                            device=self.device) for b in pplan.buckets]
+
+    def encode_into(self, buf: torch.Tensor, g: torch.Tensor,
+                    coef: torch.Tensor, slot: LeafSlot) -> torch.Tensor:
+        """Fold one subset's gradient leaf straight into its bucket slot:
+        ``buf[slot] += encode(g, coef)`` in place through the backend's
+        accumulating encode, skipping the materialise-then-pack copy of the
+        synchronous path.  ``buf`` is a flat contiguous f32 bucket (or one
+        worker's row of a stack of them); ``g`` must already be f32 (the
+        fold accumulates in f32, like the per-leaf path's ``encoding_zero``
+        carry).  Returns ``buf``."""
+        m = coef.shape[0]
+        G, _ = _encode_operand(g, slot.plan, m)
+        acc = buf[slot.offset:slot.offset + slot.size]
+        if G.ndim == 4:
+            acc = acc.view(slot.enc_shape[0], G.shape[3])
+        self.backend.encode_acc(acc, G, coef.reshape(1, m))
+        return buf
 
     # ---- wire
     def to_wire(self, e: torch.Tensor, mask_i: torch.Tensor) -> torch.Tensor:
@@ -126,8 +156,9 @@ class Codec:
         return out
 
     def pack_params(self, flat_leaves, pplan: PackPlan) -> list[torch.Tensor]:
-        """Param/momentum leaves -> one (L, m) f32 bucket-layout view per
-        bucket, row-aligned with the decoded gradient buffers."""
+        """Param/momentum leaves -> one new (L, m) f32 bucket-layout buffer
+        per bucket, row-aligned with the decoded gradient buffers (the fused
+        decode-plus-apply operands; see ``packing.pack_param_groups``)."""
         return [pack_param_groups(flat_leaves, b, self.code.m)
                 for b in pplan.buckets]
 
@@ -166,9 +197,15 @@ class Codec:
         """One bucket's collective + contraction: (n, L) -> (L, m) f32."""
         return self.schedule.decode_packed(bufs, W, comm, self.backend)
 
-    def decode_apply_packed(self, *args, **kwargs):
-        """One bucket's collective + fused decode-and-SGD-momentum apply."""
-        raise NotImplementedError(f"Codec.decode_apply_packed {_LATER}")
+    def decode_apply_packed(self, bufs: torch.Tensor, W: torch.Tensor,
+                            P: torch.Tensor, MU: torch.Tensor, comm: Comm, *,
+                            lr: float, momentum: float, scale: float):
+        """One bucket's collective + fused decode-and-SGD-momentum apply on
+        its (L, m) param/momentum buffers: returns (p', mu', sum(g*g)).  See
+        ``Schedule.decode_apply_packed``."""
+        return self.schedule.decode_apply_packed(
+            bufs, W, P, MU, comm, self.backend, lr=lr, momentum=momentum,
+            scale=scale)
 
 
 def make_codec(code: "GradCode", *, schedule: str | Schedule = "gather",

@@ -221,11 +221,13 @@ def psum_fallback(flat_leaves: Sequence[torch.Tensor], flat_plans,
 def pack_param_groups(flat_leaves: Sequence[torch.Tensor],
                       bucket: WireBucket, m: int) -> torch.Tensor:
     """Lay the bucket's *parameter* (or optimizer-state) leaves out in the
-    decoded-buffer layout: an ``(bucket.size, m)`` f32 view whose rows
-    ``[slot.offset, slot.offset + slot.size)`` hold leaf ``slot.leaf_index``
-    exactly where ``unpack_bucket`` reads that leaf's decoded gradient.
-    Rows in the alignment gaps and the tail are zeros.  (The operand layout
-    of the fused decode-plus-apply path.)"""
+    decoded-buffer layout: a fresh contiguous ``(bucket.size, m)`` f32
+    buffer whose rows ``[slot.offset, slot.offset + slot.size)`` hold leaf
+    ``slot.leaf_index`` exactly where ``unpack_bucket`` reads that leaf's
+    decoded gradient.  Rows in the alignment gaps and the tail are zeros.
+    (The operand layout of the fused decode-plus-apply path, whose kernel
+    overwrites it: the buffer is always a copy, never a view of a leaf, even
+    when one f32 leaf fills the bucket exactly.)"""
     like = flat_leaves[bucket.slots[0].leaf_index]
     parts: list[torch.Tensor] = []
     pos = 0
@@ -238,7 +240,7 @@ def pack_param_groups(flat_leaves: Sequence[torch.Tensor],
         pos = s.offset + s.size
     if bucket.size > pos:
         parts.append(_gap(bucket.size - pos, like, torch.float32, m))
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    return torch.cat(parts)          # a new buffer, even for a single part
 
 
 def unpack_param_groups(buf: torch.Tensor, bucket: WireBucket,

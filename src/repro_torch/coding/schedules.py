@@ -69,6 +69,26 @@ class Schedule:
         collective choreography for the whole bucket."""
         raise NotImplementedError
 
+    def decode_apply_packed(self, bufs: torch.Tensor, W: torch.Tensor,
+                            P: torch.Tensor, MU: torch.Tensor, comm: Comm,
+                            backend: CodecBackend, *, lr: float,
+                            momentum: float, scale: float):
+        """Decode one packed bucket AND apply the SGD-momentum update to its
+        ``(L, m)`` param/momentum buffers (``packing.pack_param_groups``):
+
+            g = scale * decode(bufs);  mu' = momentum * MU + g;  p' = P - lr * mu'
+
+        Returns ``(p', mu', sum(g*g))``; the sum of squares feeds the step's
+        gradient-norm metric.  This default spelling composes
+        ``decode_packed`` with the optimizer's elementwise expressions (it
+        serves every schedule); a schedule whose choreography ends with one
+        full local contraction overrides it with the backend's fused
+        decode-apply kernel."""
+        dec = self.decode_packed(bufs, W, comm, backend)
+        g = dec * scale
+        mu = momentum * MU + g
+        return P - lr * mu, mu, torch.sum(g * g)
+
 
 @dataclasses.dataclass(frozen=True)
 class GatherSchedule(Schedule):
@@ -90,6 +110,14 @@ class GatherSchedule(Schedule):
         bucket."""
         gathered = comm.all_gather(bufs)                  # (n, L)
         return backend.decode(gathered, W, out_dtype=torch.float32)  # (L, m)
+
+    def decode_apply_packed(self, bufs, W, P, MU, comm, backend, *, lr,
+                            momentum, scale):
+        """Fully fused: one all_gather, then the backend's decode-plus-apply
+        over the whole bucket (one kernel on the hopper backend)."""
+        gathered = comm.all_gather(bufs)                  # (n, L)
+        return backend.decode_apply(gathered, W, P, MU, lr=lr,
+                                    momentum=momentum, scale=scale)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,9 +13,6 @@ False
 the spec: anything workload-specific (``grad_scale``) or cluster-specific
 (the code object, the device, the worker group) — a spec is the reusable
 "how to aggregate", not the "what" or the "where".
-
-The pipelined (stale-by-one) step is not ported yet: ``pipelined=True`` and
-``fuse_apply=True`` raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -52,8 +49,12 @@ class SchemeSpec:
     the design ``s`` decode approximately with an ``err_factor`` error
     certificate instead of raising.
 
-    pipelined / fuse_apply: the async stale-by-one step and its fused
-    decode-plus-apply; not ported yet.
+    pipelined: the async stale-by-one train step
+    (``repro_torch.train.pipeline``); requires ``packed=True`` and an
+    encoding schedule.
+
+    fuse_apply: fuse decode with the SGD apply (pipelined-only; ``None``
+    resolves to the fully bit-exact unfused default).
 
     encode_dtype: wire dtype of the transmitted encodings ("float32" |
     "bfloat16": the types the kernels take).
@@ -68,15 +69,29 @@ class SchemeSpec:
     encode_dtype: str = "float32"
 
     def __post_init__(self):
-        """Reject unknown names and the levers not ported yet, eagerly."""
+        """Reject unknown names and structurally impossible lever
+        combinations eagerly, with the reference's messages; checks that
+        need more context (the optimizer kind for ``fuse_apply``) stay with
+        ``make_coded_train_step``."""
         if self.pipelined:
-            raise NotImplementedError(
-                "pipelined=True: the pipelined (stale-by-one) step is not "
-                "ported yet")
-        if self.fuse_apply:
-            raise NotImplementedError(
-                "fuse_apply=True is a lever of the pipelined (stale-by-one) "
-                "step, which is not ported yet")
+            if not self.packed:
+                raise ValueError(
+                    "pipelined=True requires packed=True: the wire state IS "
+                    "the PackPlan's bucketed flat buffers")
+            if self.partial:
+                raise ValueError(
+                    "pipelined partial-recovery is unsupported: the "
+                    "err_factor certificate is computed from the same "
+                    "step's subset gradients and cannot ride the "
+                    "stale-by-one wire")
+            if (isinstance(self.schedule, str)
+                    and not get_schedule(self.schedule).uses_encoding):
+                raise ValueError(
+                    "pipelined=True needs an encoding schedule (gather/"
+                    "a2a); the psum baseline has no wire to double-buffer")
+        if self.fuse_apply and not self.pipelined:
+            raise ValueError("fuse_apply is a pipelined-step lever; "
+                             "pass pipelined=True")
         if isinstance(self.schedule, str):
             get_schedule(self.schedule)
         if isinstance(self.backend, str) and self.backend not in BACKEND_NAMES:

@@ -111,11 +111,27 @@ def load() -> ctypes.CDLL:
     if built:
         lib_path = build()
     lib = ctypes.CDLL(str(lib_path))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("coded_encode_launch", "coded_decode_launch"):
-        fn = getattr(lib, name)
+    # argtypes on every entry point: without them ctypes passes a Python int
+    # as a 32-bit int (cutting pointers) and a Python float as a double
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    signatures = {
         # (in, coef, out, d|n, V, m, R, rank3, in_dtype, out_dtype, stream)
-        fn.argtypes = [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32, i32, ptr]
+        "coded_encode_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32,
+                                i32, ptr],
+        "coded_decode_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32,
+                                i32, ptr],
+        # (G, C, acc, d, V, m, R, rank3, in_dtype, stream)
+        "coded_encode_acc_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32,
+                                    i32, ptr],
+        # (F, W, P, MU, partials, ss, n, V, m, lr, momentum, scale,
+        #  in_dtype, num_partials, stream)
+        "coded_decode_apply_launch": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
+                                      i32, f32, f32, f32, i32, i64, ptr],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = i32
     _lib = lib
     last_build = {"seconds": time.perf_counter() - t0, "lib": str(lib_path),

@@ -28,10 +28,22 @@ All coding phases are delegated to a ``repro_torch.coding.Codec``:
 ``schedule`` picks the choreography (gather / a2a / psum), ``backend`` the
 encode/decode implementation ("auto" -> the CUDA kernels on a cuda device,
 the plain versions on the cpu).
+
+With ``SchemeSpec(pipelined=True)`` the build also carries the async
+stale-by-one step (``StepArtifacts.pipeline``, driven by
+``repro_torch.train.pipeline.PipelineDriver``): ``fill`` encodes one batch
+into the wire state, ``steady`` decodes the in-flight wire and applies its
+update while encoding the current batch at the pre-update params, ``drain``
+retires the last wire.  The encode folds each subset gradient straight into
+the 128-aligned wire buckets (``Codec.encode_into``, the accumulating encode
+kernel); ``fuse_apply=True`` decodes and applies SGD-momentum in one kernel
+per bucket (``Codec.decode_apply_packed``).  Parity contract: fill
+immediately followed by drain == the synchronous step, bit for bit.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Mapping
 
 import torch
@@ -42,6 +54,7 @@ from ..comm import Comm, make_local_comm
 from ..core import GradCode
 from ..models import api as model_api
 from ..optim import Optimizer
+from .pipeline import PipelineFns
 
 Params = dict
 
@@ -68,6 +81,9 @@ class StepArtifacts:
     pack_plan: coding.PackPlan | None = None
     partial: bool = False
     spec: coding.SchemeSpec | None = None   # the resolved scheme levers
+    pipelined: bool = False
+    fuse_apply: bool = False
+    pipeline: PipelineFns | None = None     # fill / steady / drain
 
     def step_inputs(self, stragglers=()) -> dict[str, torch.Tensor]:
         """Drop-pattern hook: `W`/`mask`/`rho` on the step's device for a
@@ -78,6 +94,16 @@ class StepArtifacts:
                                       partial=self.partial)
         return {k: torch.as_tensor(v).to(self.codec.device)
                 for k, v in inp.items()}
+
+
+def pipelining_supported(comm: Comm, schedule: str = "gather") -> bool:
+    """Whether the async pipelined step is available for ``schedule`` on
+    the worker group ``comm``: the schedule must carry an encoding (psum has
+    no wire to double-buffer).  Every ``Comm`` of the port runs its
+    collectives natively, so the group itself never rules it out (the
+    reference also checks its runtime's collective lowering here)."""
+    del comm
+    return coding.get_schedule(schedule).uses_encoding
 
 
 def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
@@ -111,6 +137,18 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
     device: where the step runs; defaults to the card and raises when there
     is none.  comm: the worker group (default: the single-process group of
     ``code.n`` workers on ``device``).
+
+    spec.pipelined: also build the async three-phase step
+    (``StepArtifacts.pipeline``); the synchronous step is built as well and
+    is unchanged.  On a cuda device ``steady`` runs its decode half on a
+    side CUDA stream beside the encode half on the current stream and joins
+    the two before it returns; on the cpu the halves run one after the
+    other.
+
+    spec.fuse_apply: fuse each bucket's decode with the SGD-momentum update
+    (``optimizer.kind == "sgd"`` only).  Params and momentum stay bit-equal
+    to the synchronous step; ``grad_norm`` sums squares in bucket order
+    instead of leaf order (~1e-6 relative).  Pipelined-only.
     """
     spec = spec or coding.SchemeSpec()
     dev = resolve_device(device)
@@ -127,6 +165,19 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
         linear = cfg is not None and cfg.family == "linear"
         grad_scale = 1.0 if linear else 1.0 / k_subsets
     partial = spec.partial
+    pipelined = spec.pipelined
+    fuse = bool(spec.fuse_apply)
+    # the spec has refused pipelined with packed=False or partial=True, and
+    # with a psum schedule given by name; a Schedule object is checked here
+    if pipelined and not coding.get_schedule(spec.schedule).uses_encoding:
+        raise ValueError(
+            "pipelined=True needs an encoding schedule (gather/a2a); the "
+            "psum baseline has no wire to double-buffer")
+    if fuse and optimizer.kind != "sgd":
+        raise ValueError(
+            f"fuse_apply supports optimizer.kind='sgd' only (the fused "
+            f"kernel replicates the SGD-momentum rule); got "
+            f"{optimizer.kind or 'opaque'!r}")
 
     codec = spec.make_codec(code, dev)
     names = list(params_like)
@@ -150,9 +201,13 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
         g = torch.autograd.grad(lval, [params[k] for k in names])
         return lval.detach(), [x.to(f32) for x in g]
 
-    def _finish(grads, loss_rows, mask, gss_rows, ef, coded):
+    def _scaled_with_norm(grads):
         grads = {k: g_ * grad_scale for k, g_ in grads.items()}
-        gnorm = torch.sqrt(sum(torch.sum(g_ * g_) for g_ in grads.values()))
+        return grads, torch.sqrt(sum(torch.sum(g_ * g_)
+                                     for g_ in grads.values()))
+
+    def _finish(grads, loss_rows, mask, gss_rows, ef, coded):
+        grads, gnorm = _scaled_with_norm(grads)
         # responders' view, normalised by the subset count (= n uniformly)
         loss_global = comm.psum(torch.stack(loss_rows) * mask) / k_subsets
         metrics = {"loss": loss_global, "grad_norm": gnorm}
@@ -243,6 +298,151 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
             new_params, new_opt = optimizer.update(grads, opt_state, params)
         return new_params, new_opt, metrics
 
+    def _make_pipeline() -> PipelineFns:
+        """The fill / steady / drain callables of the pipelined step.
+
+        Wire state: one (n, L_b) buffer per bucket in the wire dtype, then
+        the (n, S) f32 side buffer: each worker's psum-fallback leaves
+        (flattened, in leaf order) and, last, its masked loss.  Every phase
+        repeats the synchronous step's operations on the same values in the
+        same order, so fill + drain is the synchronous step bit for bit.
+        """
+        slot_items = [(bi, s) for bi, b in enumerate(pplan.buckets)
+                      for s in b.slots]
+        small_ix = [t for t, pl in enumerate(flat_plans) if not pl.coded]
+        small_shapes = [tuple(params_like[names[t]].shape) for t in small_ix]
+        side_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+        def _encode_wire(params, batch, mask, rho):
+            """One batch's backward + fused encode: per worker, fold each
+            subset gradient straight into the f32 bucket accumulators (the
+            synchronous fold -> to_wire -> pack without the materialised
+            per-leaf encodings; the add order per element is the same and
+            the padding stays exactly zero) and the rho-weighted small
+            leaves."""
+            p = {k: v.detach().requires_grad_(True)
+                 for k, v in params.items()}
+            wire_rows, small_rows, loss_rows = [], [], []
+            for i in range(n):
+                accs = codec.bucket_acc_zeros(pplan)
+                smalls = [torch.zeros(sh, dtype=f32, device=dev)
+                          for sh in small_shapes]
+                loss_acc = _zero()
+                for j in range(code.d):
+                    lval, g = _subset_grads(p, batch, i, j)
+                    cj, rj = C[i, j], rho[i, j]
+                    for bi, slot in slot_items:
+                        codec.encode_into(accs[bi], g[slot.leaf_index], cj,
+                                          slot)
+                    smalls = [sm + rj * g[t]
+                              for sm, t in zip(smalls, small_ix)]
+                    loss_acc = loss_acc + rj * lval
+                # stragglers transmit nothing: zero the payload
+                wire_rows.append([codec.to_wire(a, mask[i]) for a in accs])
+                small_rows.append(smalls)
+                loss_rows.append(loss_acc)
+            wires = tuple(torch.stack(rows) for rows in zip(*wire_rows))
+            cols = [torch.stack([r[q] for r in small_rows]).reshape(n, -1)
+                    for q in range(len(small_ix))]
+            loss_col = (torch.stack(loss_rows) * mask)[:, None]
+            side = torch.cat(cols + [loss_col], dim=1)
+            return wires + (side,)
+
+        def _decode_update(params, opt_state, W, wires, side):
+            """Decode the in-flight wire and side buffers and apply the
+            update: the synchronous step's decode and optimizer phases on
+            state instead of freshly produced encodings.  The side buffer's
+            two parts are summed apart, as the synchronous step sums them,
+            so that each sum sees the same operand shape (a reduction's
+            order may depend on it)."""
+            small_grads = {}
+            if small_ix:
+                ssum = comm.psum(side[:, :-1].contiguous())
+                off = 0
+                for t, sh in zip(small_ix, small_shapes):
+                    sz = math.prod(sh)
+                    small_grads[t] = ssum[off:off + sz].reshape(sh)
+                    off += sz
+            loss = comm.psum(side[:, -1].contiguous()) / k_subsets
+            if not fuse:
+                decs = [codec.decode_packed(w, W, comm) for w in wires]
+                flat = codec.unpack(decs, pplan) | small_grads
+                grads, gnorm = _scaled_with_norm(
+                    {k: flat[t] for t, k in enumerate(names)})
+                with torch.no_grad():
+                    new_params, new_opt = optimizer.update(grads, opt_state,
+                                                           params)
+                return new_params, new_opt, {"loss": loss,
+                                             "grad_norm": gnorm}
+            hy, mu = optimizer.hyper, opt_state["mu"]
+            flat_p = [params[k] for k in names]
+            flat_mu = [mu[k] for k in names]
+            p_bufs, mu_bufs, ss_parts = [], [], []
+            for w, pb, mb in zip(wires, codec.pack_params(flat_p, pplan),
+                                 codec.pack_params(flat_mu, pplan)):
+                pn, mun, ss = codec.decode_apply_packed(
+                    w, W, pb, mb, comm, lr=hy["lr"],
+                    momentum=hy["momentum"], scale=grad_scale)
+                p_bufs.append(pn)
+                mu_bufs.append(mun)
+                ss_parts.append(ss)
+            new_p = codec.unpack_params(p_bufs, pplan, flat_p)
+            new_mu = codec.unpack_params(mu_bufs, pplan, flat_mu)
+            # the small leaves ride the plain optimizer update
+            small = [names[t] for t in small_ix]
+            sgrads = {names[t]: small_grads[t] * grad_scale
+                      for t in small_ix}
+            with torch.no_grad():
+                sp, sstate = optimizer.update(
+                    sgrads, {"mu": {k: mu[k] for k in small}},
+                    {k: params[k] for k in small})
+            new_params = {k: new_p[t] if t in new_p else sp[k]
+                          for t, k in enumerate(names)}
+            new_opt = {"mu": {k: new_mu[t] if t in new_mu
+                              else sstate["mu"][k]
+                              for t, k in enumerate(names)}}
+            gnorm = torch.sqrt(sum(ss_parts)
+                               + sum(torch.sum(g_ * g_)
+                                     for g_ in sgrads.values()))
+            return new_params, new_opt, {"loss": loss, "grad_norm": gnorm}
+
+        def fill(params, batch, mask, rho):
+            """Pipeline fill: encode one batch into wire state, no update."""
+            return _encode_wire(params, batch, mask, rho)
+
+        def steady(params, opt_state, batch, W, mask, rho, *wire):
+            """Decode the in-flight wire (the pattern of the PREVIOUS call:
+            its W arrives now) and apply the stale-by-one update, while
+            encoding the current batch at the pre-update params.  On the
+            card the decode half runs on the side stream: it first waits for
+            everything queued on the current stream (the wire, the params),
+            and the current stream waits for it before this returns.  Every
+            tensor the side stream reads is an argument of this call, alive
+            until that join; what it allocates belongs to the side stream,
+            which waits for the current one at the start of every call."""
+            if side_stream is None:
+                out = _decode_update(params, opt_state, W, wire[:-1],
+                                     wire[-1])
+                return out + _encode_wire(params, batch, mask, rho)
+            cur = torch.cuda.current_stream(dev)
+            side_stream.wait_stream(cur)
+            with torch.cuda.stream(side_stream):
+                out = _decode_update(params, opt_state, W, wire[:-1],
+                                     wire[-1])
+            new_wire = _encode_wire(params, batch, mask, rho)
+            cur.wait_stream(side_stream)
+            return out + new_wire
+
+        def drain(params, opt_state, W, *wire):
+            """Retire the last in-flight wire: decode + update only."""
+            return _decode_update(params, opt_state, W, wire[:-1], wire[-1])
+
+        return PipelineFns(fill=fill, steady=steady, drain=drain,
+                           num_buffers=len(pplan.buckets) + 1)
+
+    pipeline = _make_pipeline() if pipelined else None
     return StepArtifacts(step=step, aggregate=agg, plans=plans,
                          coded_fraction=coded_frac, codec=codec, comm=comm,
-                         pack_plan=pplan, partial=partial, spec=spec)
+                         pack_plan=pplan, partial=partial, spec=spec,
+                         pipelined=pipelined, fuse_apply=fuse,
+                         pipeline=pipeline)

@@ -268,15 +268,40 @@ def test_scheme_spec_levers():
     assert spec.uses_encoding and not tc.SchemeSpec(schedule="psum").uses_encoding
     codec = spec.make_codec(TCODE, device="cpu")
     assert codec.wire_dtype == torch.bfloat16 and codec.schedule.name == "a2a"
-    for kw in (dict(pipelined=True), dict(fuse_apply=True)):
-        with pytest.raises(NotImplementedError, match="pipelined"):
+    assert tc.SchemeSpec(pipelined=True, fuse_apply=True).pipelined
+    # the reference's eager validation of the pipelined levers
+    for kw, msg in ((dict(pipelined=True, packed=False), "packed"),
+                    (dict(pipelined=True, partial=True), "partial"),
+                    (dict(pipelined=True, schedule="psum"), "encoding"),
+                    (dict(fuse_apply=True), "pipelined")):
+        with pytest.raises(ValueError, match=msg):
             tc.SchemeSpec(**kw)
     with pytest.raises(ValueError):
         tc.SchemeSpec(encode_dtype="int8")
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        codec.encode_into(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        codec.decode_apply_packed()
+    # the fused codec phases: a fold into a bucket slot equals the per-leaf
+    # encode laid into the slot, and the fused decode-apply equals decode +
+    # the update expressions
+    tree = {"a": torch.empty(6, 8, 5), "b": torch.empty(64)}
+    plans = codec.plan(tree)
+    pplan = codec.pack_plan(tree, plans)
+    (buf,) = codec.bucket_acc_zeros(pplan)
+    g = torch.randn(6, 8, 5, generator=torch.Generator().manual_seed(0))
+    coef = torch.tensor([0.5, -2.0])
+    slot = pplan.buckets[0].slots[0]
+    assert codec.encode_into(buf, g, coef, slot) is buf
+    enc = codec.encode_leaf(g, coef, plans["a"]).reshape(-1)
+    assert torch.equal(buf[slot.offset:slot.offset + slot.size], enc)
+    assert torch.count_nonzero(buf[slot.offset + slot.size:]) == 0
+    bufs = torch.stack([buf * (i + 1) for i in range(N)])
+    W = torch.ones(N, M)
+    P = torch.ones(buf.shape[0], M)
+    MU = torch.zeros(buf.shape[0], M)
+    pn, mun, ss = codec.decode_apply_packed(bufs, W, P, MU,
+                                            make_local_comm(N, "cpu"),
+                                            lr=0.1, momentum=0.9, scale=0.5)
+    g_dec = codec.decode_packed(bufs, W, make_local_comm(N, "cpu")) * 0.5
+    assert torch.equal(mun, g_dec) and torch.equal(pn, 1 - 0.1 * g_dec)
+    assert torch.equal(ss, torch.sum(g_dec * g_dec))
 
 
 def test_comm_collectives():

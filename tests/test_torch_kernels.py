@@ -174,8 +174,9 @@ def test_ops_modes_and_launch_counts():
     ops.encode(G, C)
     ops.decode(F, W)
     assert set(ops.launch_counts()) == {
-        "coded_encode_2d", "coded_encode_3d",
-        "coded_decode_2d", "coded_decode_3d"}
+        "coded_encode_2d", "coded_encode_3d", "coded_encode_acc_2d",
+        "coded_encode_acc_3d", "coded_decode_2d", "coded_decode_3d",
+        "coded_decode_apply"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 
