@@ -10,8 +10,9 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            ``build/`` and loads the library
   kernels  holds each CUDA kernel (coded_encode / coded_decode, 2D and 3D;
            coded_encode_acc 2D and 3D; coded_decode_apply) against its plain
-           PyTorch version over ragged sweeps in f32 and bf16, the plain
-           pair also against ``torch.einsum``, the fused pair bitwise
+           PyTorch version over ragged sweeps and every path's own shapes
+           (the serving path's encode and decode included) in f32 and bf16,
+           the plain pair also against ``torch.einsum``, the fused pair bitwise
            against their two-step spellings on the card; and times each at
            the main path's shapes, on inputs that are not in the L2 cache,
            beside its plain version, one library call where there is one,
@@ -36,6 +37,20 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the synchronous step bitwise (fused and not), a steady call
            against the synchronous update of the batch it retires, and the
            pipelined run against the plain backend
+  serve    the serving path: ``CodedServer`` on ``qwen3-1.7b`` at full width
+           (28 layers, d_model 2048, random weights from a seed, f32) with
+           code (4, 3, 1, 2), one request per subset and 4096-token prompts:
+           3 batches submitted and stepped, every prefill's attention through
+           the flash attention kernel (n * d * 28 = 336 launches a batch);
+           the decoded logits against the uncoded forward of the same
+           prompts, the hedge (a straggler's payload never reaches the
+           output bits), and no failed requests
+
+The kernel checks also hold ``flash_attention`` against its plain version
+(the reference's online-softmax loop) at the sweep of tests/test_kernels.py,
+at the serving shape and with a window and a query offset, and time it beside
+``scaled_dot_product_attention``.  Float32 products run in full f32:
+TF32 is switched off for matmuls and cuDNN.
 
 Each phase prints one JSON line.  Any failed phase ends the run with a
 non-zero exit code; without a CUDA device the script exits with code 2 and
@@ -46,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -73,7 +89,7 @@ try:
     from repro_torch.configs import get_config
     from repro_torch.core import make_code
     from repro_torch.data import CodedBatcher, make_synthetic_batch
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, flash_attn, ops
     from repro_torch.kernels.coded_decode import (coded_decode,
                                                   coded_decode_apply,
                                                   coded_decode_apply_plain,
@@ -82,7 +98,9 @@ try:
                                                   coded_encode_acc,
                                                   coded_encode_acc_plain,
                                                   coded_encode_plain)
+    from repro_torch.models import api as model_api
     from repro_torch.optim import nag, sgd_momentum
+    from repro_torch.serving import CodedServer
     from repro_torch.train import (PipelineDriver, Trainer,
                                    make_coded_train_step)
     from repro_torch.tune import RandomStragglers
@@ -94,6 +112,7 @@ except ImportError as e:
 DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor-core rate, dense
 L2_BYTES = 50e6                # H100 L2 cache; timed inputs rotate past it
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 F32 = torch.float32
@@ -101,6 +120,16 @@ STEPS = 5                      # train steps on the main path
 SEED = 0                       # of the synthetic batch
 PIPE_LR = 1e-6                 # SGD-momentum step of the pipelined path
 PATTERNS = ((2, 5), (), (0,))  # straggler sets of the chained parity checks
+SERVE_SEQ = 4096               # prompt length of the serving path
+SERVE_CODE = (4, 3, 1, 2)      # (n, d, s, m) of the serving path
+SERVE_BATCHES = 3              # batches the serve phase submits and steps
+# decoded logits against the uncoded forward: f32 throughout, 28 layers of
+# products summed in other orders (one prompt a call against four), then the
+# decode's weights; held to 1e-3 of the largest logit
+SERVE_REL_TOL = 1e-3
+
+torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in full f32
+torch.backends.cudnn.allow_tf32 = False
 
 
 def say(**obj):
@@ -126,12 +155,25 @@ def _randn(gen, shape, dtype):
     return torch.randn(*shape, generator=gen).to(dtype).to(DEV)
 
 
+def _serve_codec_shapes():
+    """The serving path's encode ``G (1, q, m)`` and decode ``(n, L, m)``:
+    one request a subset, its ``(vocab,)`` logits folded m-fold, and the
+    wire of k blocks of q rounded up to lcm(WIRE_ALIGN, n), as
+    ``make_coded_forward`` lays them out."""
+    code = make_code(*SERVE_CODE)
+    q = -(-get_config("qwen3-1.7b").vocab // code.m)
+    align = math.lcm(coding.WIRE_ALIGN, code.n)
+    L = -(-(code.num_subsets * q) // align) * align
+    return (1, q, code.m), (code.n, L, code.m)
+
+
+SERVE_ENC, SERVE_DEC = _serve_codec_shapes()
 ENC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (8, 1024, 8), (31, 96, 3),
-         (2, 1001, 7), (1, 171737, 2)]
+         (2, 1001, 7), (1, 171737, 2), SERVE_ENC]
 ENC3D = [(3, 16, 2, 128), (4, 256, 2, 64), (2, 40, 5, 96), (2, 7, 3, 33),
          (1, 3072, 2, 2048)]
 DEC2D = [(4, 64, 2), (16, 512, 3), (32, 96, 8), (10, 1280, 1), (12, 1001, 19),
-         (64, 77, 32), (8, 171776, 2)]
+         (64, 77, 32), (8, 171776, 2), SERVE_DEC]
 DEC3D = [(4, 32, 2, 128), (16, 128, 4, 64), (5, 9, 11, 17), (8, 3072, 2048)]
 ACC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (2, 1001, 7), (1, 171737, 2)]
 ACC3D = [(2, 7, 3, 33), (2, 40, 5, 96), (3, 16, 2, 128), (1, 3072, 2, 2048)]
@@ -191,7 +233,7 @@ def check_kernels():
                 {"max_abs_err": 0.0, "max_rel_err": 0.0,
                  "max_abs_err_vs_einsum": 0.0, "max_abs_err_bf16": 0.0,
                  "max_abs_err_bf16_vs_einsum": 0.0, "cases": 0})
-            for k in ops.launch_counts()}
+            for k in ops.launch_counts() if k != "flash_attention"}
 
     def note(name, dtype, e):
         r = errs[name]
@@ -233,6 +275,7 @@ def check_kernels():
             continue
         fail("a wrapper accepted an operand the kernel does not take")
     check_fused_kernels(gen, errs)
+    errs["flash_attention"] = check_flash(gen)
     return errs
 
 
@@ -338,6 +381,69 @@ def check_fused_kernels(gen, errs):
         fail("a CPU tensor launched a kernel")
 
 
+# (B, S, H, Hkv, hd, mask_kind, window, query offset): the sweep of
+# tests/test_kernels.py, the serving shape, a window and a query offset
+FLASH = [(2, 256, 4, 2, 64, "causal", 0, 0), (1, 128, 2, 2, 32, "full", 0, 0),
+         (2, 256, 4, 4, 64, "window", 64, 0), (1, 192, 4, 1, 128, "causal", 0, 0),
+         (1, SERVE_SEQ, 16, 8, 128, "causal", 0, 0),
+         (1, 1024, 16, 8, 128, "window", 256, 0),
+         (2, 200, 8, 2, 128, "causal", 0, 312)]
+
+
+FLASH_BF16_REL_NORM = 1e-2
+
+
+def check_flash(gen):
+    """``flash_attention`` against its plain version on the card (f32 and
+    bf16), one launch a call; then what the wrapper must refuse."""
+    r = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "cases": 0}
+    for dtype in (F32, torch.bfloat16):
+        for B, S, H, Hkv, hd, kind, w, p0 in FLASH:
+            q = _randn(gen, (B, S, H, hd), dtype)
+            k = _randn(gen, (B, S + p0, Hkv, hd), dtype)
+            v = _randn(gen, (B, S + p0, Hkv, hd), dtype)
+            n0 = flash_attn.LAUNCHES["flash_attention"]
+            got = flash_attn.flash_attention_gqa(q, k, v, H // Hkv,
+                                                 mask_kind=kind, window=w,
+                                                 kv_pos0=p0)
+            torch.cuda.synchronize()
+            if flash_attn.LAUNCHES["flash_attention"] != n0 + 1:
+                fail("flash_attention did not launch its kernel once")
+            want = flash_attn.flash_attention_gqa_plain(
+                q, k, v, H // Hkv, mask_kind=kind, window=w, kv_pos0=p0)
+            what = f"flash_attention{(B, S, H, Hkv, hd, kind, w, p0)} {dtype}"
+            if got.dtype != dtype:
+                fail(f"{what}: output dtype {got.dtype}")
+            e = _close(what, got.to(F32), want.to(F32), TOL[dtype])
+            key = "max_abs_err" if dtype == F32 else "max_abs_err_bf16"
+            r[key] = max(r[key], e)
+            if dtype == torch.bfloat16:
+                # at long S the outputs are small (about 0.03 for S = 4096),
+                # so the elementwise 2e-2 alone is loose: the error's norm
+                # is held to 1e-2 of the output's as well
+                rel = ((got.float() - want.float()).norm() /
+                       want.float().norm()).item()
+                if rel > FLASH_BF16_REL_NORM:
+                    fail(f"{what}: relative error norm {rel:.3e} exceeds "
+                         f"{FLASH_BF16_REL_NORM}")
+                r["max_rel_norm_err_bf16"] = max(
+                    r.get("max_rel_norm_err_bf16", 0.0), rel)
+            r["cases"] += 1
+    x = _randn(gen, (1, 64, 2, 48), F32)
+    y = _randn(gen, (1, 64, 2, 64), F32)
+    for exc, bad in ((ValueError, lambda: flash_attn.flash_attention_gqa(x, x, x, 1)),
+                     (TypeError, lambda: flash_attn.flash_attention_gqa(
+                         y, y.bfloat16(), y, 1)),
+                     (ValueError, lambda: flash_attn.flash_attention_gqa(
+                         _randn(gen, (1, 64, 2, 128), F32)[..., ::2], y, y, 1))):
+        try:
+            bad()
+        except exc:
+            continue
+        fail(f"flash_attention accepted an operand it must refuse ({exc.__name__})")
+    return r
+
+
 def time_ms(fn, reps=25, warmup=5):
     """Median device time of one call ``fn(i)``: CUDA events around the
     call, queued behind a spin kernel so the host's enqueue cost is not in
@@ -359,8 +465,8 @@ def time_ms(fn, reps=25, warmup=5):
     return statistics.median(times)
 
 
-def _bound(nbytes, flops):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+def _bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -371,6 +477,8 @@ def _operands(kind, shape, m, dtype, out_dtype, gen):
     operands, and the bytes and operations that bound it."""
     isz = torch.empty((), dtype=dtype).element_size()
     osz = torch.empty((), dtype=out_dtype).element_size()
+    if kind == "flash":
+        return _flash_operands(shape, dtype, gen, isz)
     n_in = int(np.prod(shape))
     if kind in ("encode", "encode_acc"):
         d, V, mm = shape[:3]
@@ -413,6 +521,32 @@ def _operands(kind, shape, m, dtype, out_dtype, gen):
             n_in * isz + 4 * L * m * 4, 2 * n_in * m + 6 * L * m)
 
 
+def _flash_operands(shape, dtype, gen, isz):
+    """Causal attention at ``(B, S, H, Hkv, hd)``: the kernel, the plain
+    version and ``scaled_dot_product_attention`` (the yardstick; the port
+    never calls it) on the same q, k, v.  Operations: the pairs the causal
+    mask admits, S (S + 1) / 2 per head, times 2 hd for the scores and 2 hd
+    for P V; bytes: q, k, v read once, the output written once."""
+    B, S, H, Hkv, hd = shape
+    g = H // Hkv
+
+    def make():
+        return (_randn(gen, (B, S, H, hd), dtype),
+                _randn(gen, (B, S, Hkv, hd), dtype),
+                _randn(gen, (B, S, Hkv, hd), dtype))
+
+    def library(o):
+        q, k, v = (x.transpose(1, 2) for x in o)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=g > 1)
+
+    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * isz
+    flops = 4 * hd * B * H * S * (S + 1) // 2
+    return (make, lambda o: flash_attn.flash_attention_gqa(*o, g),
+            lambda o: flash_attn.flash_attention_gqa_plain(*o, g),
+            library, nbytes, flops)
+
+
 def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
     """ms / plain_ms / library_ms / bound_ms of one kernel at one shape.
 
@@ -429,7 +563,11 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
     per_copy = sum(x.numel() * x.element_size() for x in first)
     copies = max(2, int(2 * L2_BYTES // per_copy) + 1)
     sets = [first] + [make() for _ in range(copies - 1)]
-    bound_ms, bound_by = _bound(nbytes, flops)
+    # the kernels compute in f32 whatever the input type; the bf16 bound is
+    # the tensor cores' rate, the most the card offers for bf16 inputs
+    bound_ms, bound_by = _bound(nbytes, flops,
+                                BF16_FLOP_PER_S if dtype == torch.bfloat16
+                                else F32_FLOP_PER_S)
     ms = time_ms(lambda i: kernel(sets[i % copies]))
     plain_ms = time_ms(lambda i: plain(sets[i % copies]))
     library_ms = (time_ms(lambda i: library(sets[i % copies]))
@@ -441,8 +579,9 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
             "bytes": nbytes, "input_copies": copies, "ms": ms,
             "ms_l2_warm": ms_warm, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-            "achieved_GBps": nbytes / (ms * 1e-3) / 1e9}
+            "bound_by": bound_by, "flops": flops,
+            "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
+            "achieved_TFLOPps": flops / (ms * 1e-3) / 1e12}
 
 
 # ---------------------------------------------------------------- main path
@@ -499,9 +638,9 @@ def _union_us(intervals):
     return total
 
 
-def profile_steps(tr, batch, step_ms, label, steps=3):
-    """Where a train step's time goes: ``torch.profiler`` over a few more
-    steps gives the device-busy time and the kernels that fill it; the idle
+def profile_steps(step, step_ms, label, steps=3):
+    """Where a step's time goes (``step()`` runs one): ``torch.profiler``
+    over a few more steps gives the device-busy time and the kernels that fill it; the idle
     share is taken against ``step_ms``, the step's wall time measured
     without the profiler (tracing slows the host many times over).  Busy
     time is the union of the device activities' intervals over all streams;
@@ -512,7 +651,7 @@ def profile_steps(tr, batch, step_ms, label, steps=3):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            tr.step(batch)
+            step()
         torch.cuda.synchronize()
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
@@ -828,11 +967,12 @@ def run_main_path(args):
         decoded_grad_rel_err_2_stragglers=gerr)
     pipelined_checks(args, cfg, code, batch, tr_p)
     if args.profile:
-        idle_sync = profile_steps(tr, batch, statistics.median(steps_ms[1:]),
+        idle_sync = profile_steps(lambda: tr.step(batch),
+                                  statistics.median(steps_ms[1:]),
                                   "synchronous NAG")
         tr_p.step(batch)                  # fill, then 3 steady steps
         torch.cuda.synchronize()
-        idle_steady = profile_steps(tr_p, batch, steady_ms,
+        idle_steady = profile_steps(lambda: tr_p.step(batch), steady_ms,
                                     "pipelined steady")
         tr_p.drain()
         say(phase="profile_idle", sync_nag=idle_sync, pipelined_steady=idle_steady,
@@ -840,6 +980,120 @@ def run_main_path(args):
     return {"logistic-paper Trainer.step": counts_train,
             "logistic-paper pipelined Trainer.step": counts_pipe,
             "mlp make_coded_train_step": counts_mlp}
+
+
+# ------------------------------------------------------------- serve path
+def run_serve_path(args):
+    """``CodedServer`` on qwen3-1.7b at full width with 4096-token prompts.
+
+    Counted window: the launch counts and the plain flash version's call
+    count are set to 0 just before the batches are submitted and read just
+    after the last one is stepped.  Outside it: the uncoded forward of the
+    first batch's prompts, the hedge, and the straggler-free serve."""
+    cfg = get_config("qwen3-1.7b")
+    code = make_code(*SERVE_CODE)
+    k = code.num_subsets
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = model_api.init(cfg, DEV, gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCHES * k, SERVE_SEQ),
+                           dtype=np.int32)
+    srv = CodedServer(cfg, code, params, batch_per_subset=1, seq_len=SERVE_SEQ,
+                      straggler_source=RandomStragglers(seed=2), device=DEV)
+    if srv.artifacts.codec.backend.name != "hopper":
+        fail(f"serve backend {srv.artifacts.codec.backend.name!r}, not the kernels")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    flash_attn.PLAIN_CALLS["flash_attention"] = 0
+    for row in prompts:
+        srv.submit({"tokens": row})
+    results, per_batch, step_ms = [], [], []
+    before = ops.launch_counts()
+    while True:
+        t1 = time.perf_counter()
+        res = srv.step()
+        if res is None:
+            break
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        now = ops.launch_counts()
+        per_batch.append({kk: now[kk] - before[kk] for kk in now if now[kk] != before[kk]})
+        before = now
+        results.append(res)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    plain_calls = flash_attn.PLAIN_CALLS["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    if plain_calls:
+        fail(f"the serving path called the plain flash version {plain_calls} times")
+    per_prefill = cfg.n_layers
+    want_batch = {"flash_attention": code.n * code.d * per_prefill,
+                  "coded_encode_2d": code.n * code.d, "coded_decode_2d": 1}
+    if len(results) != SERVE_BATCHES or any(pb != want_batch for pb in per_batch):
+        fail(f"serving launches per batch {per_batch}, expected {want_batch} "
+             f"in each of {SERVE_BATCHES} batches")
+    for res in results:
+        if res.outputs.shape != (k, cfg.vocab) or not np.isfinite(res.outputs).all():
+            fail(f"served outputs: shape {res.outputs.shape} or non-finite")
+        if res.failed_rows:
+            fail(f"failed request rows {res.failed_rows} within the design s")
+    ids = [r.req_id for res in results for r in res.requests]
+    if ids != list(range(1, len(prompts) + 1)):
+        fail(f"requests served out of order: {ids}")
+
+    # ---- outside the window: the uncoded forward of batch 0's prompts
+    first = {"tokens": torch.from_numpy(prompts[:k]).to(DEV)}
+    t1 = time.perf_counter()
+    with torch.no_grad():
+        direct = model_api.make_forward(cfg)(params, first)
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t1) * 1e3
+    direct = direct.cpu().numpy()
+    scale = float(np.abs(direct).max())
+    err = float(np.abs(results[0].outputs - direct).max())
+    if err > SERVE_REL_TOL * max(1.0, scale):
+        fail(f"decoded logits differ from the uncoded forward by {err:.3e} "
+             f"(max |logit| {scale:.3e}, tolerance {SERVE_REL_TOL} of it)")
+    # the hedge: under the pattern's W the straggler's payload never reaches
+    # the output bits (its prompts replaced by others: the same bits)
+    hedged = srv.serve_batch({"tokens": prompts[:k]}, stragglers=(1,))
+    arts = srv.artifacts
+    placed = CodedBatcher(code).place(first)
+    other = torch.from_numpy(rng.integers(0, cfg.vocab, (code.d, 1, SERVE_SEQ),
+                                          dtype=np.int32)).to(DEV)
+    placed["tokens"][1] = other
+    inp = arts.step_inputs((1,))
+    with torch.no_grad():
+        junk = arts.step(params, placed, inp["W"], inp["mask"], inp["rho"])
+    junk = junk.cpu().numpy()
+    if not np.array_equal(junk, hedged.outputs):
+        fail("a straggler's payload changed the decoded bits")
+    full = srv.serve_batch({"tokens": prompts[:k]}, stragglers=())
+    diff_full = float(np.abs(full.outputs - hedged.outputs).max())
+    if diff_full > SERVE_REL_TOL * max(1.0, scale):
+        fail(f"stragglers (1,) and () decode {diff_full:.3e} apart")
+    if args.profile:
+        profile_steps(lambda: srv.serve_batch({"tokens": prompts[:k]}),
+                      statistics.median(r.wall_s * 1e3 for r in results),
+                      "coded serve batch", steps=1)
+    say(phase="serve", model=cfg.name, params=n_params,
+        param_bytes=sum(v.numel() * v.element_size() for v in params.values()),
+        init_s=init_s, code=list(SERVE_CODE), batch_requests=k,
+        seq_len=SERVE_SEQ, batches=len(results),
+        stragglers=[list(r.stragglers) for r in results],
+        wall_ms=[r.wall_s * 1e3 for r in results], step_ms=step_ms,
+        launches_per_batch=per_batch, launches=counts,
+        plain_flash_calls=plain_calls, peak_memory_bytes=peak,
+        uncoded_forward_ms=direct_ms, max_abs_logit=scale,
+        max_abs_err_vs_uncoded=err, tolerance=SERVE_REL_TOL * max(1.0, scale),
+        hedge_bitwise=True, stragglers_1_vs_none_max_abs_diff=diff_full,
+        hedged_wall_ms=hedged.wall_s * 1e3, unhedged_wall_ms=full.wall_s * 1e3)
+    return counts, len(results)
 
 
 # --------------------------------------------------------------------- main
@@ -857,7 +1111,8 @@ def main():
     smi = nvidia_smi_line()
     say(phase="env", python=sys.version.split()[0], torch=torch.__version__,
         cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-        nvidia_smi=smi)
+        nvidia_smi=smi, matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     _build.load()
     say(phase="build", **_build.last_build,
@@ -872,8 +1127,12 @@ def main():
         "coded_encode_acc_2d": measure("encode_acc", (1, 171737, 2)),
         "coded_encode_acc_3d": measure("encode_acc", (1, 3072, 2, 2048)),
         "coded_decode_apply": measure("decode_apply", (8, 171776), m=2),
+        "flash_attention": measure("flash", (1, SERVE_SEQ, 16, 8, 128)),
     }
     other_shapes = {
+        "flash_attention": [measure("flash", (1, SERVE_SEQ, 16, 8, 128),
+                                    dtype=torch.bfloat16,
+                                    out_dtype=torch.bfloat16)],
         "coded_encode_2d": [measure("encode", (4, 4194304, 2)),
                             measure("encode", (1, 171737, 2), dtype=torch.bfloat16,
                                     out_dtype=torch.bfloat16)],
@@ -888,14 +1147,17 @@ def main():
         errors=errs, at_main_path_shapes=main_shapes, at_other_shapes=other_shapes)
 
     counts = run_main_path(args)
+    serve_path = "qwen3-1.7b CodedServer.step"
+    counts[serve_path], n_batches = run_serve_path(args)
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined
-    # run, the 3D variants on the MLP's matrices
-    trainer_path, pipe_path, mlp_path = counts
+    # run, the 3D variants on the MLP's matrices, flash attention on the
+    # serving path (which also runs the 2D pair, counted there too)
+    trainer_path, pipe_path, mlp_path = list(counts)[:3]
     path_of = {"coded_encode_2d": trainer_path, "coded_decode_2d": trainer_path,
                "coded_encode_3d": mlp_path, "coded_decode_3d": mlp_path,
                "coded_encode_acc_2d": pipe_path, "coded_decode_apply": pipe_path,
-               "coded_encode_acc_3d": mlp_path}
+               "coded_encode_acc_3d": mlp_path, "flash_attention": serve_path}
 
     replaces = {"coded_encode_2d": "src/repro/kernels/coded_encode.py:76",
                 "coded_encode_3d": "src/repro/kernels/coded_encode.py:93",
@@ -903,10 +1165,13 @@ def main():
                 "coded_decode_3d": "src/repro/kernels/coded_decode.py:73",
                 "coded_encode_acc_2d": "src/repro/kernels/coded_encode.py:143",
                 "coded_encode_acc_3d": "src/repro/kernels/coded_encode.py:159",
-                "coded_decode_apply": "src/repro/kernels/coded_decode.py:134"}
+                "coded_decode_apply": "src/repro/kernels/coded_decode.py:134",
+                "flash_attention": "src/repro/kernels/flash_attn.py:99"}
     kernels = []
     for name, meas in main_shapes.items():
-        stem = "coded_encode" if name.startswith("coded_encode") else "coded_decode"
+        stem = ("flash_attn" if name == "flash_attention" else
+                "coded_encode" if name.startswith("coded_encode") else
+                "coded_decode")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{stem}.cu",
@@ -917,6 +1182,8 @@ def main():
             "bound_ms": meas["bound_ms"], "bound_by": meas["bound_by"],
             "library_ms": meas["library_ms"], "shape": meas["shape"],
             "dtype": meas["dtype"], "ms_l2_warm": meas["ms_l2_warm"]})
+        if name == "flash_attention":
+            kernels[-1]["launches_per_batch"] = kernels[-1]["launches"] / n_batches
         if kernels[-1]["launches"] == 0:
             fail(f"kernel {name} was not launched on its path, {path_of[name]}")
     report = {"kernels": kernels, "launches_by_path": counts}

@@ -6,6 +6,7 @@ import importlib
 from .base import ModelConfig
 
 _MODULES = {
+    "qwen3-1.7b": "qwen3_1p7b",
     "logistic-paper": "logistic_paper",
 }
 

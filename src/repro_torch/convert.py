@@ -24,6 +24,11 @@ def _flatten(tree: Mapping[str, Any], prefix: str = ""):
             yield f"{prefix}{k}", v
 
 
+def flatten(tree: Mapping[str, Any]) -> dict:
+    """Nested dict -> flat ``{"a/b": leaf}`` in the reference's leaf order."""
+    return dict(_flatten(tree))
+
+
 def _unflatten(flat: Mapping[str, Any]) -> dict:
     out: dict = {}
     for key, v in flat.items():

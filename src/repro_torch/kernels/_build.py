@@ -128,6 +128,11 @@ def load() -> ctypes.CDLL:
         #  in_dtype, num_partials, stream)
         "coded_decode_apply_launch": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
                                       i32, f32, f32, f32, i32, i64, ptr],
+        # (q, k, v, out, B, Sq, Sk, H, Hkv, hd, q/k/v strides (b, s, h),
+        #  mask_kind, window, q_pos0, scale, dtype, stream)
+        "flash_attention_launch": [ptr, ptr, ptr, ptr, i32, i64, i64, i32, i32,
+                                   i32] + [i64] * 9 + [i32, i64, i64, f32, i32,
+                                                       ptr],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

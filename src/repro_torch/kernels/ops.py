@@ -19,6 +19,7 @@ from .coded_decode import (coded_decode, coded_decode_apply,
 from .coded_encode import LAUNCHES as _ENC_LAUNCHES
 from .coded_encode import (coded_encode, coded_encode_acc,
                            coded_encode_acc_plain, coded_encode_plain)
+from .flash_attn import LAUNCHES as _FLASH_LAUNCHES
 
 MODES = ("auto", "ref")
 
@@ -59,11 +60,11 @@ def decode_apply(F: torch.Tensor, W: torch.Tensor, P: torch.Tensor,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far, by kernel name."""
-    return {**_ENC_LAUNCHES, **_DEC_LAUNCHES}
+    return {**_ENC_LAUNCHES, **_DEC_LAUNCHES, **_FLASH_LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for table in (_ENC_LAUNCHES, _DEC_LAUNCHES):
+    for table in (_ENC_LAUNCHES, _DEC_LAUNCHES, _FLASH_LAUNCHES):
         for k in table:
             table[k] = 0

@@ -1,0 +1,194 @@
+"""The coded inference server: the paper's scheme applied to inference.
+
+Batched forward passes ride the coded replica layout of
+``repro_torch.serving.coded``; the engine decodes from the fastest ``n - s``
+replicas (hedging: straggler payloads never reach the output bits) and, with
+a ``partial`` spec, serves past-``s`` failures under a certified error bound.
+
+Not ported yet: the KV-cache decode surface (``BatchedEngine``,
+``build_serve_artifacts``) and the serving auto-tuner
+(``CodedServer(autotune=)``, refused with ``NotImplementedError``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from .. import coding
+from .._device import resolve_device
+from ..comm import Comm
+from ..data import CodedBatcher
+from ..tune.stragglers import as_straggler_source
+from .batcher import Request, RequestBatcher
+from .coded import ForwardArtifacts, failed_request_rows, make_coded_forward
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSLO:
+    """The bounded-error service-level objective for degraded serving.
+
+    Inside the design budget (``<= s`` stragglers) decode is exact and the
+    SLO is trivially met.  Past it, a ``partial`` server returns the
+    least-squares decode and its error certificate; a batch is within SLO
+    iff the certified L2 bound stays under ``max_decode_err``.
+    """
+
+    max_decode_err: float = float("inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchResult:
+    """One served batch: decoded outputs + the hedge/degradation evidence.
+
+    ``outputs`` is ``(valid, *out_shape)`` on the host, padding rows already
+    dropped; ``requests`` aligns row-for-row when the batch came through the
+    request queue (empty for raw ``serve_batch`` calls).  ``stragglers`` is
+    the replica set the engine did not wait for; ``failed_rows`` the request
+    rows whose subset lost every holder (only possible past the design ``s``
+    in partial mode).  ``wall_s`` is the coded forward's wall time, up to a
+    device synchronisation on the card.
+    """
+
+    outputs: np.ndarray
+    requests: tuple[Request, ...]
+    stragglers: tuple[int, ...]
+    err_bound: float
+    within_slo: bool
+    failed_rows: tuple[int, ...]
+    wall_s: float
+
+
+class CodedServer:
+    """Batched coded-inference engine over ``n`` replicas on one device.
+
+    One ``repro_torch.coding.SchemeSpec`` (the same object a
+    ``make_coded_train_step`` call accepts) fixes the scheme, and a straggler
+    source (``repro_torch.tune``) supplies each batch's straggler set: the
+    engine decodes from the fastest ``n - len(stragglers)`` replicas.  Where
+    the reference takes a mesh, the port takes ``device`` (default: the
+    card; raises when there is none) and optionally the replica group
+    ``comm``.  ``params`` must lie on ``device``.
+    """
+
+    def __init__(self, cfg, code, params, *,
+                 spec: coding.SchemeSpec | None = None,
+                 batch_per_subset: int = 1,
+                 straggler_source=None,
+                 slo: ServeSLO | None = None,
+                 autotune=None,
+                 seq_len: int = 128,
+                 window: int = 0,
+                 device: str | torch.device = "cuda",
+                 comm: Comm | None = None):
+        """Bind model, code, device and scheme; artifacts are built at the
+        first served batch."""
+        if autotune is not None:
+            raise NotImplementedError(
+                "CodedServer(autotune=...): the serving auto-tuner (tune/) "
+                "is not ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.params = params
+        self.spec = spec if spec is not None else coding.SchemeSpec()
+        self.slo = slo if slo is not None else ServeSLO()
+        self.seq_len = seq_len
+        self.window = window
+        self.b = int(batch_per_subset)
+        self.code = code
+        self.comm = comm
+        self._source = as_straggler_source(straggler_source)
+        k = getattr(code, "num_subsets", code.n)
+        self.batch_requests = k * self.b
+        self.batcher = RequestBatcher(self.batch_requests)
+        self._arts: dict[tuple, ForwardArtifacts] = {}
+        self._placer = CodedBatcher(code)
+        self._served = 0
+        self._next_id = 0
+
+    # ---- scheme plumbing ------------------------------------------------
+    def _scheme_key(self) -> tuple:
+        code = self.code
+        return (code.n, code.d, code.s, code.m, self.spec.schedule,
+                self.spec.packed, self.spec.partial, str(self.spec.backend),
+                self.spec.encode_dtype)
+
+    @property
+    def artifacts(self) -> ForwardArtifacts:
+        """The active scheme's forward artifacts (built once per scheme)."""
+        key = self._scheme_key()
+        if key not in self._arts:
+            self._arts[key] = make_coded_forward(
+                self.cfg, self.code, spec=self.spec, batch_per_subset=self.b,
+                seq_len=self.seq_len, window=self.window, device=self.device,
+                comm=self.comm)
+        return self._arts[key]
+
+    # ---- request-queue surface -----------------------------------------
+    def submit(self, payload: dict, arrival_s: float = 0.0) -> int:
+        """Enqueue one request payload; returns its request id."""
+        self._next_id += 1
+        self.batcher.add(Request(self._next_id, payload, arrival_s))
+        return self._next_id
+
+    def step(self) -> BatchResult | None:
+        """Serve one batch from the queue (None when nothing is queued)."""
+        if not len(self.batcher):
+            return None
+        reqs, batch, valid = self.batcher.next_batch()
+        res = self.serve_batch(batch, valid=valid)
+        return dataclasses.replace(res, requests=tuple(reqs))
+
+    # ---- the coded forward ---------------------------------------------
+    def serve_batch(self, batch: dict, valid: int | None = None,
+                    stragglers=None) -> BatchResult:
+        """Run one coded forward over a ``(B, ...)`` batch dict of numpy
+        arrays or tensors.
+
+        ``stragglers`` overrides the straggler source (tests drive exact
+        patterns through it); ``valid`` trims padding rows from the
+        returned outputs.  The batch is moved to the device first and
+        placed there, so the d-fold redundant layout never crosses the host
+        link.
+        """
+        arts = self.artifacts
+        code = arts.codec.code
+        if stragglers is None:
+            draw = self._source.draw(self._served, code).restrict(code.n)
+            stragglers = list(draw.stragglers)
+        else:
+            stragglers = list(stragglers)
+        inp = arts.step_inputs(stragglers)
+        on_dev = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in batch.items()}
+        placed = self._placer.place(on_dev)
+        args = (self.params, placed, inp["W"], inp["mask"], inp["rho"])
+        if arts.partial:
+            args = args + (inp["err_factor"],)
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = arts.step(*args)
+        if on_card:
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+        if arts.partial:
+            out, bound = out
+            err_bound = float(bound)
+        else:
+            err_bound = 0.0
+        failed = tuple(failed_request_rows(code, stragglers, self.b))
+        self._served += 1
+        nvalid = self.batch_requests if valid is None else int(valid)
+        return BatchResult(
+            outputs=out[:nvalid].cpu().numpy(),
+            requests=(),
+            stragglers=tuple(int(i) for i in stragglers),
+            err_bound=err_bound,
+            within_slo=err_bound <= self.slo.max_decode_err,
+            failed_rows=failed,
+            wall_s=wall)

@@ -246,3 +246,73 @@ def test_leaf_grouped_on_a_later_dim_on_the_card():
     pp, sp, _ = drv.drain(params, opt.init(params))
     assert torch.equal(ps["w"], pp["w"])
     assert torch.equal(ss["mu"]["w"], sp["mu"]["w"])
+
+
+FLASH_SWEEP = [
+    (2, 256, 4, 2, 64, "causal", 0, 0),
+    (1, 128, 2, 2, 32, "full", 0, 0),
+    (2, 256, 4, 4, 64, "window", 64, 0),
+    (1, 192, 4, 1, 128, "causal", 0, 0),     # MQA, S not a tile multiple
+    (1, 100, 4, 2, 128, "causal", 0, 60),    # query offset, ragged tiles
+    (1, 96, 2, 1, 64, "window", 40, 70),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_on_the_card(dtype):
+    """The flash attention kernel against its plain version (the
+    reference's online_attention loop) on the sweep of tests/test_kernels.py
+    plus query offsets, within 2e-5 (f32) / 2e-2 (bf16); each call
+    launches the kernel once and never the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attn
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(0)
+    for B, Sq, H, Hkv, hd, kind, w, p0 in FLASH_SWEEP:
+        q = torch.randn(B, Sq, H, hd, generator=g).to(dtype).cuda()
+        k = torch.randn(B, Sq + p0, Hkv, hd, generator=g).to(dtype).cuda()
+        v = torch.randn(B, Sq + p0, Hkv, hd, generator=g).to(dtype).cuda()
+        n0 = flash_attn.LAUNCHES["flash_attention"]
+        plain0 = flash_attn.PLAIN_CALLS["flash_attention"]
+        got = flash_attn.flash_attention_gqa(q, k, v, H // Hkv, mask_kind=kind,
+                                             window=w, kv_pos0=p0)
+        assert flash_attn.LAUNCHES["flash_attention"] == n0 + 1
+        assert flash_attn.PLAIN_CALLS["flash_attention"] == plain0
+        want = flash_attn.flash_attention_gqa_plain(
+            q, k, v, H // Hkv, mask_kind=kind, window=w, kv_pos0=p0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros(1, 64, 2, 48, device="cuda")
+        flash_attn.flash_attention_gqa(x, x, x, 1)
+    with pytest.raises(TypeError):
+        x = torch.zeros(1, 64, 2, 64, device="cuda")
+        flash_attn.flash_attention_gqa(x, x.bfloat16(), x, 1)
+
+
+@pytest.mark.gpu
+def test_reduced_prefill_with_the_kernel_matches_plain_path():
+    """Reduced qwen3-1.7b at S = 2304 (the online-softmax branch): the
+    prefill on the card, which launches the flash kernel once per layer,
+    against the same prefill on the CPU through the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-1.7b").reduced()
+    params = api.init(cfg, "cpu", torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (1, 2304),
+                         generator=torch.Generator().manual_seed(1))
+    prefill = api.make_prefill(cfg, 2304)
+    n0 = flash_attn.LAUNCHES["flash_attention"]
+    got, cache = prefill({k: v.cuda() for k, v in params.items()},
+                         {"tokens": toks.cuda()})
+    assert flash_attn.LAUNCHES["flash_attention"] == n0 + cfg.n_layers
+    want, want_cache = prefill(params, {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cache["k"].cpu(), want_cache["k"], rtol=1e-4,
+                               atol=1e-4)

@@ -64,8 +64,10 @@ def _entry_points():
     from repro_torch.core import make_code
     from repro_torch.models import api
     from repro_torch.optim import nag
+    from repro_torch.serving import CodedServer, make_coded_forward
     from repro_torch.train import Trainer, make_coded_train_step
     cfg, code = get_config("logistic-paper"), make_code(4, 3, 1, 2)
+    lm = get_config("qwen3-1.7b").reduced()
     return {
         "Trainer": lambda: Trainer(cfg, code, nag(1e-3)),
         "make_coded_train_step":
@@ -74,12 +76,17 @@ def _entry_points():
         "SchemeSpec.make_codec": lambda: coding.SchemeSpec().make_codec(code),
         "make_local_comm": lambda: comm.make_local_comm(4),
         "models.api.init": lambda: api.init(cfg),
+        "models.api.init(dense)": lambda: api.init(lm),
+        "CodedServer": lambda: CodedServer(lm, code, {}),
+        "make_coded_forward": lambda: make_coded_forward(lm, code),
     }
 
 
 @pytest.mark.parametrize("name", ["Trainer", "make_coded_train_step",
                                   "make_codec", "SchemeSpec.make_codec",
-                                  "make_local_comm", "models.api.init"])
+                                  "make_local_comm", "models.api.init",
+                                  "models.api.init(dense)", "CodedServer",
+                                  "make_coded_forward"])
 def test_default_device_is_the_card_and_never_a_quiet_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
@@ -90,7 +97,8 @@ def test_default_device_is_the_card_and_never_a_quiet_cpu(name):
 def test_kernel_build_needs_nvcc_and_says_so(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
     assert [p.name for p in _build.sources()] == ["coded_decode.cu",
-                                                  "coded_encode.cu"]
+                                                  "coded_encode.cu",
+                                                  "flash_attn.cu"]
     assert _build.build_dir() == SRC.parent / "build" / "repro_torch_kernels"
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

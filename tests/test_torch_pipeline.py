@@ -141,7 +141,7 @@ def test_fused_ops_modes_and_refusals():
     assert set(ops.launch_counts()) == {
         "coded_encode_2d", "coded_encode_3d", "coded_encode_acc_2d",
         "coded_encode_acc_3d", "coded_decode_2d", "coded_decode_3d",
-        "coded_decode_apply"}
+        "coded_decode_apply", "flash_attention"}
     assert all(v == 0 for v in ops.launch_counts().values())
     with pytest.raises(TypeError, match="float32"):
         coded_encode_acc(acc.to(torch.bfloat16), G, C)
