@@ -46,11 +46,17 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            prompts, the hedge (a straggler's payload never reaches the
            output bits), and no failed requests
 
-The kernel checks also hold ``flash_attention`` against its plain version
-(the reference's online-softmax loop) at the sweep of tests/test_kernels.py,
-at the serving shape and with a window and a query offset, and time it beside
-``scaled_dot_product_attention``.  Float32 products run in full f32:
-TF32 is switched off for matmuls and cuDNN.
+The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
+f32, one bf16 pass for bf16) against its plain version (the reference's
+online-softmax loop) at the sweep of tests/test_kernels.py, at the serving
+shape, with a window and a query offset, at hd 32 and 64 with a ragged S,
+q_per_kv = 4, B > 1 with a window and an offset, and on views of one fused
+projection; check what it refuses (TMA alignment, inputs that require grad
+under grad mode); and time it beside ``scaled_dot_product_attention`` in
+the same type, against the tensor-core bounds.  The build phase reports
+the flash kernels' registers, spills and shared memory.  Float32 products
+of the plain versions run in full f32: TF32 is switched off for matmuls
+and cuDNN.
 
 Each phase prints one JSON line.  Any failed phase ends the run with a
 non-zero exit code; without a CUDA device the script exits with code 2 and
@@ -113,6 +119,7 @@ DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate (data sheet)
 F32_FLOP_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM bf16 tensor-core rate, dense
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor-core rate, dense
 L2_BYTES = 50e6                # H100 L2 cache; timed inputs rotate past it
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 F32 = torch.float32
@@ -382,15 +389,38 @@ def check_fused_kernels(gen, errs):
 
 
 # (B, S, H, Hkv, hd, mask_kind, window, query offset): the sweep of
-# tests/test_kernels.py, the serving shape, a window and a query offset
+# tests/test_kernels.py, the serving shape, a window and a query offset; then
+# the edges of the tensor-core kernel: hd 32 and 64 with a ragged S (a last
+# key tile and query tile cut short), q_per_kv = 4, and B > 1 with a window
+# and a query offset
 FLASH = [(2, 256, 4, 2, 64, "causal", 0, 0), (1, 128, 2, 2, 32, "full", 0, 0),
          (2, 256, 4, 4, 64, "window", 64, 0), (1, 192, 4, 1, 128, "causal", 0, 0),
          (1, SERVE_SEQ, 16, 8, 128, "causal", 0, 0),
          (1, 1024, 16, 8, 128, "window", 256, 0),
-         (2, 200, 8, 2, 128, "causal", 0, 312)]
+         (2, 200, 8, 2, 128, "causal", 0, 312),
+         (1, 200, 4, 2, 32, "causal", 0, 0), (1, 200, 4, 2, 64, "causal", 0, 0),
+         (1, 256, 8, 2, 128, "causal", 0, 0),
+         (2, 300, 4, 2, 64, "window", 96, 40)]
+# q, k, v as views of one fused projection (B, S, H + 2 Hkv, hd): strided
+# heads and rows, read in place by TMA
+FLASH_FUSED = (2, 320, 8, 2, 128)
 
 
 FLASH_BF16_REL_NORM = 1e-2
+
+
+def _flash_inputs(gen, case, dtype):
+    """q, k, v of one case: fresh tensors, or (``case`` of FLASH_FUSED's
+    length) views of one fused projection."""
+    if len(case) == len(FLASH_FUSED):
+        B, S, H, Hkv, hd = case
+        qkv = _randn(gen, (B, S, H + 2 * Hkv, hd), dtype)
+        return (qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:],
+                ("causal", 0, 0))
+    B, S, H, Hkv, hd, kind, w, p0 = case
+    return (_randn(gen, (B, S, H, hd), dtype),
+            _randn(gen, (B, S + p0, Hkv, hd), dtype),
+            _randn(gen, (B, S + p0, Hkv, hd), dtype), (kind, w, p0))
 
 
 def check_flash(gen):
@@ -398,10 +428,9 @@ def check_flash(gen):
     bf16), one launch a call; then what the wrapper must refuse."""
     r = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "cases": 0}
     for dtype in (F32, torch.bfloat16):
-        for B, S, H, Hkv, hd, kind, w, p0 in FLASH:
-            q = _randn(gen, (B, S, H, hd), dtype)
-            k = _randn(gen, (B, S + p0, Hkv, hd), dtype)
-            v = _randn(gen, (B, S + p0, Hkv, hd), dtype)
+        for case in FLASH + [FLASH_FUSED]:
+            q, k, v, (kind, w, p0) = _flash_inputs(gen, case, dtype)
+            H, Hkv = q.shape[2], k.shape[2]
             n0 = flash_attn.LAUNCHES["flash_attention"]
             got = flash_attn.flash_attention_gqa(q, k, v, H // Hkv,
                                                  mask_kind=kind, window=w,
@@ -411,7 +440,7 @@ def check_flash(gen):
                 fail("flash_attention did not launch its kernel once")
             want = flash_attn.flash_attention_gqa_plain(
                 q, k, v, H // Hkv, mask_kind=kind, window=w, kv_pos0=p0)
-            what = f"flash_attention{(B, S, H, Hkv, hd, kind, w, p0)} {dtype}"
+            what = f"flash_attention{case} {dtype}"
             if got.dtype != dtype:
                 fail(f"{what}: output dtype {got.dtype}")
             e = _close(what, got.to(F32), want.to(F32), TOL[dtype])
@@ -431,16 +460,34 @@ def check_flash(gen):
             r["cases"] += 1
     x = _randn(gen, (1, 64, 2, 48), F32)
     y = _randn(gen, (1, 64, 2, 64), F32)
+    # TMA takes bases and strides in multiples of 16 bytes: a head stride of
+    # 66 floats, and a base 4 bytes past an aligned one, are refused
+    odd_stride = _randn(gen, (1, 64, 2, 66), F32)[..., :64]
+    odd_base = _randn(gen, (64 * 2 * 64 + 1,), F32)[1:].view(1, 64, 2, 64)
+    needs_grad = y.clone().requires_grad_()
     for exc, bad in ((ValueError, lambda: flash_attn.flash_attention_gqa(x, x, x, 1)),
                      (TypeError, lambda: flash_attn.flash_attention_gqa(
                          y, y.bfloat16(), y, 1)),
                      (ValueError, lambda: flash_attn.flash_attention_gqa(
-                         _randn(gen, (1, 64, 2, 128), F32)[..., ::2], y, y, 1))):
+                         _randn(gen, (1, 64, 2, 128), F32)[..., ::2], y, y, 1)),
+                     (ValueError, lambda: flash_attn.flash_attention_gqa(
+                         odd_stride, y, y, 1)),
+                     (ValueError, lambda: flash_attn.flash_attention_gqa(
+                         y, odd_base, y, 1)),
+                     (RuntimeError, lambda: flash_attn.flash_attention_gqa(
+                         needs_grad, y, y, 1))):
+        n0 = flash_attn.LAUNCHES["flash_attention"]
         try:
             bad()
         except exc:
+            if flash_attn.LAUNCHES["flash_attention"] != n0:
+                fail("flash_attention launched on an operand it refused")
             continue
         fail(f"flash_attention accepted an operand it must refuse ({exc.__name__})")
+    # forward only: under no_grad an input that requires grad is fine
+    with torch.no_grad():
+        flash_attn.flash_attention_gqa(needs_grad, y, y, 1)
+    torch.cuda.synchronize()
     return r
 
 
@@ -523,10 +570,11 @@ def _operands(kind, shape, m, dtype, out_dtype, gen):
 
 def _flash_operands(shape, dtype, gen, isz):
     """Causal attention at ``(B, S, H, Hkv, hd)``: the kernel, the plain
-    version and ``scaled_dot_product_attention`` (the yardstick; the port
-    never calls it) on the same q, k, v.  Operations: the pairs the causal
-    mask admits, S (S + 1) / 2 per head, times 2 hd for the scores and 2 hd
-    for P V; bytes: q, k, v read once, the output written once."""
+    version and ``scaled_dot_product_attention`` in the same type (the
+    yardstick; the port never calls it) on the same q, k, v.  Operations:
+    the pairs the causal mask admits, S (S + 1) / 2 per head, times 2 hd for
+    the scores and 2 hd for P V; bytes: q, k, v read once, the output
+    written once."""
     B, S, H, Hkv, hd = shape
     g = H // Hkv
 
@@ -563,11 +611,18 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
     per_copy = sum(x.numel() * x.element_size() for x in first)
     copies = max(2, int(2 * L2_BYTES // per_copy) + 1)
     sets = [first] + [make() for _ in range(copies - 1)]
-    # the kernels compute in f32 whatever the input type; the bf16 bound is
-    # the tensor cores' rate, the most the card offers for bf16 inputs
-    bound_ms, bound_by = _bound(nbytes, flops,
-                                BF16_FLOP_PER_S if dtype == torch.bfloat16
-                                else F32_FLOP_PER_S)
+    # the coding kernels compute in f32 whatever the input type; the bf16
+    # bound is the tensor cores' rate, the most the card offers for bf16.
+    # Flash attention runs on the tensor cores: bf16 in one pass, f32 as
+    # 3xTF32, three TF32 products for each one
+    extra = {}
+    if kind == "flash" and dtype == F32:
+        bound_ms, bound_by = _bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
+        extra["bound_ms_f32_cuda_cores"] = _bound(nbytes, flops)[0]
+    else:
+        bound_ms, bound_by = _bound(nbytes, flops,
+                                    BF16_FLOP_PER_S if dtype == torch.bfloat16
+                                    else F32_FLOP_PER_S)
     ms = time_ms(lambda i: kernel(sets[i % copies]))
     plain_ms = time_ms(lambda i: plain(sets[i % copies]))
     library_ms = (time_ms(lambda i: library(sets[i % copies]))
@@ -581,7 +636,8 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": flops,
             "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
-            "achieved_TFLOPps": flops / (ms * 1e-3) / 1e12}
+            "achieved_TFLOPps": flops / (ms * 1e-3) / 1e12,
+            "share_of_bound": bound_ms / ms, **extra}
 
 
 # ---------------------------------------------------------------- main path
@@ -1114,9 +1170,14 @@ def main():
         nvidia_smi=smi, matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    _build.load()
+    lib = _build.load()
+    flash_ptxas = {k: v for k, v in _build.ptxas_report().items()
+                   if "flash_kernel" in k}
+    flash_smem = {f"{t}_hd{hd}": lib.flash_attention_smem_bytes(code, hd)
+                  for t, code in (("f32", 0), ("bf16", 1)) for hd in (32, 64, 128)}
     say(phase="build", **_build.last_build,
-        sources=[str(p.relative_to(HERE)) for p in _build.sources()])
+        sources=[str(p.relative_to(HERE)) for p in _build.sources()],
+        flash_kernel_ptxas=flash_ptxas, flash_kernel_smem_bytes=flash_smem)
 
     errs = check_kernels()
     main_shapes = {
@@ -1184,6 +1245,7 @@ def main():
             "dtype": meas["dtype"], "ms_l2_warm": meas["ms_l2_warm"]})
         if name == "flash_attention":
             kernels[-1]["launches_per_batch"] = kernels[-1]["launches"] / n_batches
+            kernels[-1]["bound_ms_f32_cuda_cores"] = meas["bound_ms_f32_cuda_cores"]
         if kernels[-1]["launches"] == 0:
             fail(f"kernel {name} was not launched on its path, {path_of[name]}")
     report = {"kernels": kernels, "launches_by_path": counts}

@@ -1,5 +1,5 @@
-"""Data pipeline: synthetic feature streams + the cyclic redundant placement
-the paper's coding scheme requires.
+"""Data pipeline: synthetic token / feature streams + the cyclic redundant
+placement the paper's coding scheme requires.
 
 The paper partitions the data into k = n subsets; worker i holds subsets
 {i, ..., i+d-1} (mod n) (Section III).  ``CodedBatcher`` turns a global batch
@@ -62,25 +62,37 @@ class CodedBatcher:
         return placed[:, 0]
 
 
-# -------------------------------------------------------- synthetic batches
+# ------------------------------------------------------------ synthetic LM
 def make_synthetic_batch(rng: np.random.Generator, cfg, global_batch: int,
                          seq_len: int = 0) -> dict[str, np.ndarray]:
-    """One synthetic batch, made on the host from ``rng`` (family ``linear``:
-    x/y; the token families come with their models)."""
+    """One synthetic batch for any zoo config (tokens/labels/embeds/x/y),
+    made on the host from ``rng``: the reference's numbers, draw for draw."""
     if cfg.family == "linear":
         x = rng.standard_normal((global_batch, cfg.d_model)).astype(np.float32)
         y = (rng.random(global_batch) < 0.5).astype(np.int32)
         return {"x": x, "y": y}
-    raise NotImplementedError(
-        f"synthetic batches for family {cfg.family!r} are not ported yet")
+    toks = rng.integers(0, cfg.vocab, (global_batch, seq_len), dtype=np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    if cfg.family in ("vlm", "encdec"):
+        batch["embeds"] = rng.standard_normal(
+            (global_batch, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        # decoder tokens are bounded by dec_ctx
+        S = min(seq_len, cfg.dec_ctx)
+        batch["tokens"] = batch["tokens"][:, :S]
+        batch["labels"] = batch["labels"][:, :S]
+    return batch
 
 
-def synthetic_stream(cfg, global_batch: int, seq_len: int = 0,
-                     seed: int = 0) -> Iterator[dict[str, np.ndarray]]:
+def synthetic_lm_stream(cfg, global_batch: int, seq_len: int = 0,
+                        seed: int = 0) -> Iterator[dict[str, np.ndarray]]:
     """Endless stream of synthetic batches from one seeded generator."""
     rng = np.random.default_rng(seed)
     while True:
         yield make_synthetic_batch(rng, cfg, global_batch, seq_len)
+
+
+synthetic_stream = synthetic_lm_stream   # the name earlier slices exported
 
 
 # ----------------------------------------------- synthetic logistic (Sec V)

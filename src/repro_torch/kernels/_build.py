@@ -15,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -100,6 +101,30 @@ def build() -> pathlib.Path:
     return lib
 
 
+def ptxas_report() -> dict[str, dict]:
+    """Registers and spill bytes of each kernel, from the ``-Xptxas -v``
+    lines of the last build's log (empty when this checkout has not built
+    the library): ``{mangled name: {"registers", "spill_stores",
+    "spill_loads"}}``."""
+    log = build_dir() / f"nvcc_{_source_hash()}.log"
+    if not log.exists():
+        return {}
+    out, name = {}, None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
 def load() -> ctypes.CDLL:
     """The loaded library, built first when its sources have no build yet."""
     global _lib, last_build
@@ -134,6 +159,7 @@ def load() -> ctypes.CDLL:
                                    i32] + [i64] * 9 + [i32, i64, i64, f32, i32,
                                                        ptr],
     }
+    signatures["flash_attention_smem_bytes"] = [i32, i32]   # (dtype, hd)
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

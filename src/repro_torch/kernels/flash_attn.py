@@ -11,17 +11,23 @@ tensor, and the output in the input type.
 
 Causal attention does ``2 S^2 H hd`` operations on ``2 S (H + Hkv) hd``
 elements, several hundred operations a byte at the prompts that reach it, so
-on an H100 it is bound by arithmetic.  The kernel (``csrc/flash_attn.cu``)
-keeps score and output blocks in registers so every value read from shared
-memory feeds several multiply-adds, skips the key tiles the mask empties
-(half of the causal work), and reads the shared KV head ``h // q_per_kv`` in
-place instead of repeating K and V ``q_per_kv`` times in memory as the TPU
-wrapper does.  It takes the model layout ``(B, S, H, hd)`` through strides,
-f32 or bf16, ``hd`` in 32, 64 or 128.
+on an H100 it is bound by the tensor cores.  The kernel
+(``csrc/flash_attn.cu``) runs both products on them with ``wgmma``: f32
+inputs as 3xTF32 (each operand split into two TF32 parts, three products
+summed in f32, about 1e-6 relative), bf16 inputs in one bf16 pass with f32
+sums.  K and V tiles arrive by TMA in a ring of shared-memory stages that a
+producer warp keeps ahead of the math; key tiles the mask empties are never
+loaded (half of the causal work), and the shared KV head ``h // q_per_kv`` is
+read in place instead of repeating K and V ``q_per_kv`` times in memory as
+the TPU wrapper does.  It takes the model layout ``(B, S, H, hd)`` through
+strides (TMA needs 16-byte aligned bases and strides), f32 or bf16, ``hd``
+in 32, 64 or 128.  It is forward only: on the card the wrapper refuses
+inputs that would need a gradient.
 
 The plain version is the reference's oracle, ``models/common.py``'s
 ``online_attention``: the same ordered loop over query chunks and key chunks
 (the reference's default chunks, 256 and 1024), in the reference's types.
+It stays differentiable.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain version
 is taken only for a tensor that lies on the CPU.
@@ -39,6 +45,7 @@ MASK_KINDS = {"causal": 0, "full": 1, "window": 2}   # codes of csrc/flash_attn.
 HEAD_DIMS = (32, 64, 128)                            # what the kernel is built for
 CHUNK_Q = 256            # the reference's online_attention chunks
 CHUNK_KV = 1024
+TMA_ALIGN = 16           # bytes: TMA's alignment of bases and strides
 
 # launches of the kernel; the wrapper adds one per launch
 LAUNCHES = {"flash_attention": 0}
@@ -61,6 +68,22 @@ def _check(q, k, v, q_per_kv: int, mask_kind: str, kv_pos0: int):
                          f"{tuple(MASK_KINDS)}")
     if kv_pos0 < 0:
         raise ValueError(f"kv_pos0 must be >= 0, got {kv_pos0}")
+
+
+def tma_refusal(name: str, x: torch.Tensor) -> str | None:
+    """Why TMA cannot read ``x`` (B, S, heads, hd) in place, or None: its
+    base, and the stride of every dimension longer than 1, must be
+    multiples of 16 bytes.  The kernel never copies to get round it."""
+    esz = x.element_size()
+    if x.data_ptr() % TMA_ALIGN:
+        return (f"{name}: data_ptr {x.data_ptr():#x} is not a multiple of "
+                f"{TMA_ALIGN} bytes")
+    for d in range(3):
+        st = x.stride(d) * esz
+        if x.shape[d] > 1 and (st <= 0 or st % TMA_ALIGN):
+            return (f"{name}: stride {x.stride(d)} of dim {d} is {st} bytes, "
+                    f"not a positive multiple of {TMA_ALIGN}")
+    return None
 
 
 def _chunk(size: int, chunk: int) -> int:
@@ -137,8 +160,10 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernel runs with tiles of its own (``chunk_q`` / ``chunk_kv`` shape only
     the plain version) and raises on what it does not take: a type other
     than f32 or bf16, mixed types, ``hd`` outside 32, 64 and 128, a last
-    dimension that is not contiguous, or a query row with no key in its
-    window (the reference would average all of V there).
+    dimension that is not contiguous, a base or a stride that is not a
+    multiple of 16 bytes, a query row with no key in its window (the
+    reference would average all of V there), or, with grad mode on, an
+    input that requires grad (the kernel has no backward).
     """
     _check(q, k, v, q_per_kv, mask_kind, kv_pos0)
     if q.device.type == "cpu":
@@ -160,8 +185,17 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one the kernel is built for "
                          f"{HEAD_DIMS}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention on the card is forward only: q, "
+                           "k or v requires grad under grad mode (run under "
+                           "torch.no_grad(), or on the CPU through the plain "
+                           "version)")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("q, k, v need unit stride along head_dim")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        why = tma_refusal(name, x)
+        if why:
+            raise ValueError(why)
     if 0 in (B, Sq, Sk, H):
         raise ValueError(f"empty attention q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}")

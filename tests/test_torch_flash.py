@@ -11,6 +11,7 @@ from repro.kernels import flash_attn as jflash
 from repro.models import common as jcm
 from repro_torch.kernels import flash_attn as tflash
 from repro_torch.kernels import ops
+from repro_torch.models import common as tcm
 
 torch.set_num_threads(1)
 
@@ -99,3 +100,55 @@ def test_plain_version_counts_its_calls_and_checks_shapes():
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         tflash.flash_attention_gqa(q.to("meta"), kv.to("meta"),
                                    kv.to("meta"), 2)
+
+
+def _view(shape, dtype=torch.float32, *, pad=0, offset=0):
+    """A (B, S, heads, hd) view: rows padded by ``pad`` elements, the base
+    ``offset`` elements into its storage."""
+    B, S, Hx, hd = shape
+    n = B * S * Hx * (hd + pad) + offset
+    return torch.zeros(n, dtype=dtype)[offset:].view(B, S, Hx, hd + pad)[
+        ..., :hd]
+
+
+@pytest.mark.parametrize("make,refused", [
+    (lambda: _view((2, 64, 4, 128)), None),                    # contiguous
+    (lambda: torch.zeros(2, 64, 8, 128)[:, :, 2:6], None),     # fused view
+    (lambda: _view((1, 64, 2, 64), pad=4), None),              # 272-byte rows
+    (lambda: _view((1, 64, 2, 64), pad=2), "stride"),          # 264 bytes
+    (lambda: _view((1, 64, 2, 64), offset=1), "data_ptr"),     # base + 4 B
+    (lambda: _view((1, 64, 2, 64), torch.bfloat16, pad=4), "stride"),
+    (lambda: _view((1, 1, 1, 64), pad=2), None),   # extent-1 dims never move
+    (lambda: torch.zeros(1, 64, 1, 64).expand(1, 64, 4, 64), "stride"),
+])
+def test_tma_refusal_names_what_tma_cannot_read(make, refused):
+    why = tflash.tma_refusal("k", make())
+    if refused is None:
+        assert why is None
+    else:
+        assert why.startswith("k: ") and refused in why
+
+
+@pytest.mark.parametrize("kind,w", [("causal", 0), ("window", 24)])
+def test_plain_version_stays_differentiable_on_the_cpu(kind, w):
+    """On the CPU the wrapper is the plain version, an autograd graph: its
+    gradients equal those of the materialized softmax (the reference's
+    <= 2048-token branch) on the same inputs."""
+    rng = np.random.default_rng(3)
+    B, S, H, Hkv, hd = 1, 64, 4, 2, 32
+    leaves = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              .requires_grad_() for s in ((B, S, H, hd), (B, S, Hkv, hd),
+                                          (B, S, Hkv, hd))]
+    twins = [x.detach().clone().requires_grad_() for x in leaves]
+    got = tflash.flash_attention_gqa(*leaves, H // Hkv, mask_kind=kind,
+                                     window=w, chunk_q=16, chunk_kv=32)
+    pos = torch.arange(S)
+    mask = pos[None, :] <= pos[:, None]
+    if kind == "window":
+        mask &= pos[None, :] > pos[:, None] - w
+    want = tcm.gqa_scores_attend(*twins, mask, H // Hkv)
+    cot = torch.from_numpy(rng.standard_normal(got.shape).astype(np.float32))
+    (got * cot).sum().backward()
+    (want * cot).sum().backward()
+    for a, b in zip(leaves, twins):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5)

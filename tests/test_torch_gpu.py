@@ -255,6 +255,9 @@ FLASH_SWEEP = [
     (1, 192, 4, 1, 128, "causal", 0, 0),     # MQA, S not a tile multiple
     (1, 100, 4, 2, 128, "causal", 0, 60),    # query offset, ragged tiles
     (1, 96, 2, 1, 64, "window", 40, 70),
+    (1, 200, 4, 2, 32, "causal", 0, 0),      # hd 32, ragged S
+    (1, 256, 8, 2, 128, "causal", 0, 0),     # q_per_kv = 4
+    (2, 300, 4, 2, 64, "window", 96, 40),    # B > 1, window, query offset
 ]
 
 
@@ -290,6 +293,39 @@ def test_flash_kernel_matches_plain_on_the_card(dtype):
     with pytest.raises(TypeError):
         x = torch.zeros(1, 64, 2, 64, device="cuda")
         flash_attn.flash_attention_gqa(x, x.bfloat16(), x, 1)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_cannot_take_on_the_card():
+    """Forward only: under grad mode an input that requires grad is refused
+    (no silent drop out of autograd), under no_grad it runs; TMA's 16-byte
+    alignment of strides and bases is refused, never copied round; views
+    of one fused projection are read in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attn
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(1, 64, 2, 64, generator=g).cuda()
+    needs_grad = x.clone().requires_grad_()
+    n0 = flash_attn.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="forward only"):
+        flash_attn.flash_attention_gqa(needs_grad, x, x, 1)
+    with pytest.raises(ValueError, match="stride"):
+        flash_attn.flash_attention_gqa(
+            torch.zeros(1, 64, 2, 66, device="cuda")[..., :64], x, x, 1)
+    with pytest.raises(ValueError, match="data_ptr"):
+        flash_attn.flash_attention_gqa(
+            x, torch.zeros(64 * 2 * 64 + 1, device="cuda")[1:].view(x.shape),
+            x, 1)
+    assert flash_attn.LAUNCHES["flash_attention"] == n0
+    with torch.no_grad():
+        out = flash_attn.flash_attention_gqa(needs_grad, x, x, 1)
+    assert not out.requires_grad
+    qkv = torch.randn(2, 128, 8 + 2 * 2, 128, generator=g).cuda()
+    q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
+    got = flash_attn.flash_attention_gqa(q, k, v, 4)
+    want = flash_attn.flash_attention_gqa_plain(q, k, v, 4)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.gpu
