@@ -13,10 +13,18 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            PyTorch version over ragged sweeps and every path's own shapes
            (the serving path's encode and decode included) in f32 and bf16,
            the plain pair also against ``torch.einsum``, the fused pair bitwise
-           against their two-step spellings on the card; and times each at
-           the main path's shapes, on inputs that are not in the L2 cache,
-           beside its plain version, one library call where there is one,
-           and its byte bound
+           against their two-step spellings on the card, the encodes' scalar
+           path (operands one element off an aligned base) bitwise against
+           their vector path; and times each at the main path's shapes, on
+           inputs that are not in the L2 cache, beside its plain version,
+           one library call where there is one, and its byte bound; the
+           coding kernels also as a run of 64 back-to-back launches and by
+           the host's cost a call (200 calls, no sync), beside the launch
+           floor (an empty kernel of the library, timed both ways)
+  checks_packed_small
+           ROADMAP C.3 on the card: packed == per-leaf bitwise on the kernel
+           backend for the trees [(8,)] and [(8,), (16,)], code (4, 3, 1, 2),
+           both schedules and both wire types
   train    the synchronous path: ``Trainer`` on ``logistic-paper`` at full
            width (l = 343474), code (n, d, s, m) = (8, 4, 2, 2), NAG, random
            stragglers, 5 steps
@@ -30,7 +38,8 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            ``make_coded_train_step`` (trailing dims -> the 3D kernel
            variants), synchronous and pipelined fused.  Each of the three
            paths has its own counts: the kernel launch counts are set to 0
-           just before it and read just after it.
+           just before it and read just after it; each of its encodes must
+           have taken the vector path.
   checks   the synchronous 5 steps on the plain backend on the card, the
            decoded gradient with 2 stragglers against the uncoded gradient,
            packed against per-leaf bitwise; pipelined fill + drain against
@@ -95,7 +104,7 @@ try:
     from repro_torch.configs import get_config
     from repro_torch.core import make_code
     from repro_torch.data import CodedBatcher, make_synthetic_batch
-    from repro_torch.kernels import _build, flash_attn, ops
+    from repro_torch.kernels import _build, _launch, flash_attn, ops
     from repro_torch.kernels.coded_decode import (coded_decode,
                                                   coded_decode_apply,
                                                   coded_decode_apply_plain,
@@ -103,7 +112,8 @@ try:
     from repro_torch.kernels.coded_encode import (coded_encode,
                                                   coded_encode_acc,
                                                   coded_encode_acc_plain,
-                                                  coded_encode_plain)
+                                                  coded_encode_plain,
+                                                  encode_path)
     from repro_torch.models import api as model_api
     from repro_torch.optim import nag, sgd_momentum
     from repro_torch.serving import CodedServer
@@ -134,6 +144,8 @@ SERVE_BATCHES = 3              # batches the serve phase submits and steps
 # products summed in other orders (one prompt a call against four), then the
 # decode's weights; held to 1e-3 of the largest logit
 SERVE_REL_TOL = 1e-3
+RUN_LAUNCHES = 64              # back-to-back launches of one timed run
+HOST_CALLS = 200               # calls of one host-cost measurement
 
 torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in full f32
 torch.backends.cudnn.allow_tf32 = False
@@ -160,6 +172,15 @@ def nvidia_smi_line() -> str:
 # ------------------------------------------------------------------ kernels
 def _randn(gen, shape, dtype):
     return torch.randn(*shape, generator=gen).to(dtype).to(DEV)
+
+
+def _offset_copy(x):
+    """``x``'s values in a contiguous view whose base lies one element past
+    an aligned allocation: the encode kernels' scalar path."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
 
 
 def _serve_codec_shapes():
@@ -262,6 +283,16 @@ def check_kernels():
                 name = "coded_encode_3d" if len(shape) == 4 else "coded_encode_2d"
                 note(name, dtype, _compare(coded_encode, coded_encode_plain,
                                            G, C, out_dtype, dtype))
+                # the scalar path (G one element off an aligned base) gives
+                # the aligned call's bits
+                got = coded_encode(G, C, out_dtype=out_dtype)
+                G1 = _offset_copy(G)
+                if encode_path(G1, got) != "scalar" or not torch.equal(
+                        coded_encode(G1, C, out_dtype=out_dtype), got):
+                    fail(f"coded_encode{shape} {dtype}: the scalar path "
+                         f"differs from the {encode_path(G, got)} path bitwise")
+                errs[name]["paths_bitwise_cases"] = \
+                    errs[name].get("paths_bitwise_cases", 0) + 1
             for shape, m in [(s[:2], s[2]) for s in DEC2D] + \
                             [((s[0], s[1], s[3]), s[2]) if len(s) == 4
                              else (s, 2) for s in DEC3D]:
@@ -327,8 +358,17 @@ def check_fused_kernels(gen, errs):
             e = _close(what, got, coded_encode_acc_plain(acc0, G, C), TOL[dtype])
             if not torch.equal(got, acc0 + coded_encode(G, C, out_dtype=F32)):
                 fail(f"{what}: differs from acc + coded_encode(G, C) bitwise")
-            note("coded_encode_acc_3d" if len(shape) == 4 else
-                 "coded_encode_acc_2d", dtype, e)
+            # the scalar path, G or acc one element off an aligned base
+            for G_, acc_ in ((_offset_copy(G), acc0.clone()),
+                             (G, _offset_copy(acc0))):
+                if encode_path(G_, acc_) != "scalar" or not torch.equal(
+                        coded_encode_acc(acc_, G_, C), got):
+                    fail(f"{what}: the scalar path differs from the "
+                         f"{encode_path(G, acc)} path bitwise")
+            name = "coded_encode_acc_3d" if len(shape) == 4 else "coded_encode_acc_2d"
+            note(name, dtype, e)
+            errs[name]["paths_bitwise_cases"] = \
+                errs[name].get("paths_bitwise_cases", 0) + 2
         for n, L, m in APPLY:
             F = _randn(gen, (n, L), dtype)
             W = _randn(gen, (n, m), F32)
@@ -512,6 +552,64 @@ def time_ms(fn, reps=25, warmup=5):
     return statistics.median(times)
 
 
+def time_run_ms(fn, launches=RUN_LAUNCHES, reps=5, warmup=3):
+    """Median device time per call over a run of ``launches`` back-to-back
+    calls ``fn(i)`` between one pair of CUDA events.  The run is queued
+    behind a spin kernel; if the device reached the run's start before the
+    host had queued all of it (host gaps inside the span), the spin is
+    doubled and the run taken again.  ``i`` keeps counting across runs, so
+    rotating operands never repeat within a cache's reach."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    spin, i, times = 4_000_000, warmup, []
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(launches):
+            fn(i)
+            i += 1
+        end.record()
+        covered = not start.query()
+        end.synchronize()
+        if covered:
+            times.append(start.elapsed_time(end) / launches)
+        elif spin > 1 << 32:
+            fail("the host could not queue a run of launches ahead of the card")
+        else:
+            spin *= 2
+    return statistics.median(times)
+
+
+def host_us_per_call(fn, calls=HOST_CALLS, reps=5):
+    """Host microseconds per call of ``fn()``: the host clock over
+    ``calls`` calls with no sync between them, then one sync outside the
+    span (the device's time is not in it unless the launch queue fills);
+    median of ``reps`` such spans, as the host is shared."""
+    fn()
+    torch.cuda.synchronize()
+    spans = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        spans.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return statistics.median(spans) / calls * 1e6
+
+
+def measure_launch_floor():
+    """The launch floor: an empty kernel of the built library (one block,
+    no work), timed as one launch and as a run of back-to-back launches,
+    and its host cost per call through the same ``ctypes`` path."""
+    def empty(*_):
+        _launch.call("empty_kernel_launch", DEV)
+    return {"ms": time_ms(empty), "ms_per_launch_run": time_run_ms(empty),
+            "run_launches": RUN_LAUNCHES, "host_us_per_call": host_us_per_call(empty)}
+
+
 def _bound(nbytes, flops, flop_rate=F32_FLOP_PER_S):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
@@ -595,6 +693,14 @@ def _flash_operands(shape, dtype, gen, isz):
             library, nbytes, flops)
 
 
+def _paths_since(before):
+    """Encode launches by path since the path counts ``before``, summed
+    over the four variants."""
+    now = ops.path_counts()
+    return {p: sum(now[k][p] - before[k][p] for k in now)
+            for p in ("vector", "scalar")}
+
+
 def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
     """ms / plain_ms / library_ms / bound_ms of one kernel at one shape.
 
@@ -623,11 +729,19 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
         bound_ms, bound_by = _bound(nbytes, flops,
                                     BF16_FLOP_PER_S if dtype == torch.bfloat16
                                     else F32_FLOP_PER_S)
+    paths0 = ops.path_counts()
     ms = time_ms(lambda i: kernel(sets[i % copies]))
+    if kind in ("encode", "encode_acc"):
+        extra["path"] = [p for p, n in _paths_since(paths0).items() if n]
     plain_ms = time_ms(lambda i: plain(sets[i % copies]))
     library_ms = (time_ms(lambda i: library(sets[i % copies]))
                   if library is not None else None)
     ms_warm = time_ms(lambda i: kernel(sets[0]))
+    if kind != "flash":
+        # the coding kernels' launch-bound regime: a run of back-to-back
+        # launches on rotating operands, and the host's cost per call
+        extra["ms_per_launch_run"] = time_run_ms(lambda i: kernel(sets[i % copies]))
+        extra["host_us_per_call"] = host_us_per_call(lambda: kernel(sets[0]))
     return {"shape": list(shape) + ([m] if m else []),
             "dtype": str(dtype).split(".")[-1],
             "out_dtype": str(out_dtype).split(".")[-1],
@@ -662,8 +776,85 @@ def _mlp_case(gen_seed=21):
     return params, loss_fn, batch
 
 
+# ROADMAP C.3's leaf shapes: with code (4, 3, 1, 2) the a2a schedule cuts
+# each encoding into one-element chunks
+SMALL_TREES = ([(8,)], [(8,), (16,)])
+
+
+def check_packed_per_leaf_small():
+    """Packed == per-leaf bitwise on the card, on the kernel backend, for
+    the C.3 trees, both schedules and both wire types (the CPU test
+    ``test_decode_matches_reference_and_packed_is_bitwise_per_leaf`` holds
+    the same on the plain versions), through ``make_coded_train_step``'s
+    ``aggregate`` with a straggler; each result is also held to the plain
+    backend on the card at the wire type's tolerance."""
+    code = make_code(4, 3, 1, 2)
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(8 * code.num_subsets, 16, generator=gen).to(DEV)
+    placed = CodedBatcher(code).place({"x": x})
+
+    def loss_fn(p, b):
+        return sum(torch.sum(torch.sin(b["x"][:, :v.numel()] * v))
+                   for v in p.values())
+
+    def aggregate(params, schedule, wire, packed, backend):
+        arts = make_coded_train_step(
+            None, code, sgd_momentum(1e-3), loss_fn=loss_fn, params_like=params,
+            grad_scale=1.0, spec=coding.SchemeSpec(packed=packed, schedule=schedule,
+                                                   encode_dtype=wire, backend=backend))
+        if arts.coded_fraction != 1.0:
+            fail(f"C.3 tree {[tuple(v.shape) for v in params.values()]}: "
+                 f"coded_fraction {arts.coded_fraction}")
+        inp = arts.step_inputs((1,))
+        return arts.aggregate(params, placed, inp["W"], inp["mask"], inp["rho"])[0]
+
+    cases = []
+    paths0 = ops.path_counts()
+    for shapes in SMALL_TREES:
+        params = {f"p{i}": (0.5 * torch.randn(s, generator=gen)).to(DEV)
+                  for i, s in enumerate(shapes)}
+        for schedule in ("gather", "a2a"):
+            for wire in ("float32", "bfloat16"):
+                before = ops.launch_counts()
+                leaf = aggregate(params, schedule, wire, False, "auto")
+                packed = aggregate(params, schedule, wire, True, "auto")
+                now = ops.launch_counts()
+                launched = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+                plain = aggregate(params, schedule, wire, True, "ref")
+                torch.cuda.synchronize()
+                what = f"C.3 tree {shapes}, {schedule}, {wire} wire"
+                if not (launched.get("coded_encode_2d") and launched.get("coded_decode_2d")):
+                    fail(f"{what}: the kernels were not launched ({launched})")
+                tol = TOL[torch.float32 if wire == "float32" else torch.bfloat16]
+                for k in params:
+                    if not torch.equal(leaf[k], packed[k]):
+                        fail(f"{what}, leaf {k}: packed != per-leaf bitwise")
+                    err = _rel_err(packed[k], plain[k])
+                    if err > tol:
+                        fail(f"{what}, leaf {k}: kernels vs plain backend {err:.3e}")
+                cases.append({"shapes": [list(s) for s in shapes],
+                              "schedule": schedule, "wire": wire,
+                              "launches": launched})
+    say(phase="checks_packed_small", packed_equals_per_leaf_bitwise=True,
+        stragglers=[1], cases=cases, encode_launches_by_kernel_path=_paths_since(paths0))
+
+
 def _rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+ENCODE_PATHS = {}   # the encode launches of each counted path, by kernel path
+
+
+def _note_paths(label, require_vector=True):
+    """Record the encode launches of the path ``label`` by kernel path, read
+    with its launch counts; fail if one of them left the vector path."""
+    paths = {k: v for k, v in ops.path_counts().items() if v["vector"] or v["scalar"]}
+    ENCODE_PATHS[label] = paths
+    scalar = {k: v["scalar"] for k, v in paths.items() if v["scalar"]}
+    if scalar and require_vector:
+        fail(f"{label}: encodes took the scalar path {scalar}")
+    return paths
 
 
 def _expect(**launches):
@@ -757,6 +948,7 @@ def run_pipelined_path(args, cfg, code, batch):
     torch.cuda.synchronize()
     drained["wall_ms"] = (time.perf_counter() - t0) * 1e3
     counts = ops.launch_counts()
+    _note_paths("logistic-paper pipelined Trainer.step")
     peak = torch.cuda.max_memory_allocated()
     first, later = logs[0], logs[1:] + [drained]
     if not (np.isnan(first["loss"]) and np.isnan(first["grad_norm"])):
@@ -896,6 +1088,7 @@ def run_main_path(args):
     logs = [tr.step(batch) for _ in range(STEPS)]
     torch.cuda.synchronize()
     counts_train = ops.launch_counts()
+    _note_paths("logistic-paper Trainer.step")
     peak = torch.cuda.max_memory_allocated()
     losses = [m["loss"] for m in logs]
     if not all(np.isfinite(list(m.values())).all() for m in logs):
@@ -944,6 +1137,7 @@ def run_main_path(args):
         if key == "ref":
             torch.cuda.synchronize()
             counts_mlp = ops.launch_counts()      # read just after the drive
+            _note_paths("mlp make_coded_train_step")
         arts = make_coded_train_step(None, code, mopt,
                                      loss_fn=loss_fn, params_like=params,
                                      grad_scale=1.0, spec=spec)
@@ -1083,6 +1277,7 @@ def run_serve_path(args):
         results.append(res)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
+    serve_paths = _note_paths("qwen3-1.7b CodedServer.step", require_vector=False)
     plain_calls = flash_attn.PLAIN_CALLS["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
     if plain_calls:
@@ -1144,6 +1339,7 @@ def run_serve_path(args):
         stragglers=[list(r.stragglers) for r in results],
         wall_ms=[r.wall_s * 1e3 for r in results], step_ms=step_ms,
         launches_per_batch=per_batch, launches=counts,
+        encode_launches_by_kernel_path=serve_paths,
         plain_flash_calls=plain_calls, peak_memory_bytes=peak,
         uncoded_forward_ms=direct_ms, max_abs_logit=scale,
         max_abs_err_vs_uncoded=err, tolerance=SERVE_REL_TOL * max(1.0, scale),
@@ -1204,8 +1400,11 @@ def main():
         "coded_decode_3d": [measure("decode", (8, 3072, 2048), m=2,
                                     dtype=torch.bfloat16)],
     }
+    floor = measure_launch_floor()
     say(phase="kernels_check", tolerance={"f32": 2e-5, "bf16": 2e-2},
-        errors=errs, at_main_path_shapes=main_shapes, at_other_shapes=other_shapes)
+        errors=errs, launch_floor=floor, at_main_path_shapes=main_shapes,
+        at_other_shapes=other_shapes)
+    check_packed_per_leaf_small()
 
     counts = run_main_path(args)
     serve_path = "qwen3-1.7b CodedServer.step"
@@ -1246,9 +1445,20 @@ def main():
         if name == "flash_attention":
             kernels[-1]["launches_per_batch"] = kernels[-1]["launches"] / n_batches
             kernels[-1]["bound_ms_f32_cuda_cores"] = meas["bound_ms_f32_cuda_cores"]
+        else:
+            kernels[-1].update(
+                ms_per_launch_run=meas["ms_per_launch_run"],
+                launch_floor_ms=floor["ms"],
+                launch_floor_ms_per_launch_run=floor["ms_per_launch_run"],
+                host_us_per_call=meas["host_us_per_call"])
+        if name.startswith("coded_encode"):
+            kernels[-1].update(
+                path_at_timed_shape=meas["path"],
+                launches_by_kernel_path=ENCODE_PATHS[path_of[name]][name])
         if kernels[-1]["launches"] == 0:
             fail(f"kernel {name} was not launched on its path, {path_of[name]}")
-    report = {"kernels": kernels, "launches_by_path": counts}
+    report = {"kernels": kernels, "launches_by_path": counts,
+              "encode_launches_by_kernel_path": ENCODE_PATHS}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

@@ -141,14 +141,15 @@ def load() -> ctypes.CDLL:
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     signatures = {
-        # (in, coef, out, d|n, V, m, R, rank3, in_dtype, out_dtype, stream)
+        # (G, C, out, d, V, m, R, rank3, in_dtype, out_dtype, vec, stream)
         "coded_encode_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32,
-                                i32, ptr],
+                                i32, i32, ptr],
+        # (F, W, out, n, V, m, R, rank3, in_dtype, out_dtype, stream)
         "coded_decode_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32,
                                 i32, ptr],
-        # (G, C, acc, d, V, m, R, rank3, in_dtype, stream)
+        # (G, C, acc, d, V, m, R, rank3, in_dtype, vec, stream)
         "coded_encode_acc_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32,
-                                    i32, ptr],
+                                    i32, i32, ptr],
         # (F, W, P, MU, partials, ss, n, V, m, lr, momentum, scale,
         #  in_dtype, num_partials, stream)
         "coded_decode_apply_launch": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
@@ -160,6 +161,7 @@ def load() -> ctypes.CDLL:
                                                        ptr],
     }
     signatures["flash_attention_smem_bytes"] = [i32, i32]   # (dtype, hd)
+    signatures["empty_kernel_launch"] = [ptr]                # (stream)
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

@@ -6,13 +6,21 @@ Replaces the TPU kernel ``repro/kernels/coded_encode.py`` (``coded_encode``:
 
     out[v(, r)] = sum_{j<d, u<m} G[j, v, u(, r)] * C[j, u]
 
-does about one operation per byte, so on an H100 it is bound by bytes: one
-read of ``G`` plus one write of the output,
+does about half an operation per byte, so on an H100 it is bound by bytes:
+one read of ``G`` plus one write of the output,
 ``d*V*m*R*sizeof(in) + V*R*sizeof(out)`` over 3.35 TB/s.  The kernel
-(``csrc/coded_encode.cu``) reads ``G`` exactly once: a thread per output
-element, ``C`` in shared memory, f32 accumulation in ``(j, u)`` order, one
-store in ``out_dtype``, a masked ragged tail in place of the TPU version's
-tiles that had to divide ``V``.
+(``csrc/coded_encode.cu``) is a grid-stride stream: no more blocks than fit
+on the card, the coefficients in registers when ``d*m <= 8`` and
+``m <= 4``, ``G`` read once in 16-byte vectors with the evict-first hint (a
+thread owns 16 bytes' worth of neighbouring ``r`` in 3D, of consecutive
+``v`` in 2D), two such items in flight a thread.  A scalar path in the same
+kernel takes a 2D ``V`` tail, an ``R`` that is no multiple of the vector,
+and bases that are not 16-byte aligned; ``encode_path`` picks the path from
+the shapes and ``data_ptr()``, and ``PATH_LAUNCHES`` counts each.  On every
+path an output element is the same ``fmaf`` chain from 0 over ``(j, u)`` in
+f32, rounded once to ``out_dtype``: the paths agree bit for bit.  Where
+``V`` is small (the main path's 2D encodes move about 2 MB) the launch, not
+the bytes, sets the time.
 
 ``coded_encode_acc`` replaces the TPU kernel ``coded_encode_acc``
 (``_encode_acc_kernel_2d`` / ``_encode_acc_kernel_3d``): the pipelined step's
@@ -36,6 +44,13 @@ from . import _launch
 # launches of each variant; the wrapper adds one per kernel launch
 LAUNCHES = {"coded_encode_2d": 0, "coded_encode_3d": 0,
             "coded_encode_acc_2d": 0, "coded_encode_acc_3d": 0}
+# the same launches by the kernel's path, "vector" or "scalar"
+PATH_LAUNCHES = {k: {"vector": 0, "scalar": 0} for k in LAUNCHES}
+
+# the kernel's register form, which the vector path needs: d*m and m at
+# most these (csrc/coded_encode.cu, kRegTerms and kMaxRegM)
+REG_TERMS = 8
+MAX_REG_M = 4
 
 
 def _check_shapes(G: torch.Tensor, C: torch.Tensor):
@@ -45,6 +60,22 @@ def _check_shapes(G: torch.Tensor, C: torch.Tensor):
     if tuple(C.shape) != (G.shape[0], G.shape[2]):
         raise ValueError(f"C must be (d, m) = {(G.shape[0], G.shape[2])}, "
                          f"got {tuple(C.shape)}")
+
+
+def encode_path(G: torch.Tensor, out: torch.Tensor) -> str:
+    """The kernel path for encoding ``G`` into ``out`` (or ``acc``):
+    ``"vector"`` when the coefficients fit the register form (``d*m <= 8``,
+    ``m <= 4``) and every 16-byte vector is aligned: both bases, and in 3D
+    ``R`` a multiple of the vector's ``P`` elements of ``G``, in 2D with
+    ``d > 1`` each ``G[j]`` of ``V*m`` elements too; else ``"scalar"``.
+    The launcher holds the vector path to the same rule."""
+    d, V, m = G.shape[:3]
+    per_vector = 16 // G.element_size()
+    whole = (G.shape[3] % per_vector == 0 if G.ndim == 4
+             else d == 1 or V * m % per_vector == 0)
+    ok = (m <= MAX_REG_M and d * m <= REG_TERMS and whole
+          and G.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    return "vector" if ok else "scalar"
 
 
 def coded_encode_plain(G: torch.Tensor, C: torch.Tensor, *,
@@ -96,8 +127,14 @@ def coded_encode(G: torch.Tensor, C: torch.Tensor, *,
     coef = _launch.coef_f32("C", C, G)
     out = torch.empty((V, R) if rank3 else (V,), dtype=out_dtype,
                       device=G.device)
-    _launch.launch("coded_encode_launch", G, coef, out, d, V, m, R, rank3)
-    LAUNCHES["coded_encode_3d" if rank3 else "coded_encode_2d"] += 1
+    path = encode_path(G, out)
+    _launch.call("coded_encode_launch", G.device, G.data_ptr(),
+                 coef.data_ptr(), out.data_ptr(), d, V, m, R, int(rank3),
+                 _launch.DTYPE_CODES[G.dtype], _launch.DTYPE_CODES[out_dtype],
+                 int(path == "vector"))
+    name = "coded_encode_3d" if rank3 else "coded_encode_2d"
+    LAUNCHES[name] += 1
+    PATH_LAUNCHES[name][path] += 1
     return out
 
 
@@ -146,8 +183,11 @@ def coded_encode_acc(acc: torch.Tensor, G: torch.Tensor,
         raise ValueError(f"coefficient block d*m = {d * m} floats exceeds "
                          f"the kernel's 48 KB of shared memory")
     coef = _launch.coef_f32("C", C, G)
+    path = encode_path(G, acc)
     _launch.call("coded_encode_acc_launch", G.device, G.data_ptr(),
                  coef.data_ptr(), acc.data_ptr(), d, V, m, R, int(rank3),
-                 _launch.DTYPE_CODES[G.dtype])
-    LAUNCHES["coded_encode_acc_3d" if rank3 else "coded_encode_acc_2d"] += 1
+                 _launch.DTYPE_CODES[G.dtype], int(path == "vector"))
+    name = "coded_encode_acc_3d" if rank3 else "coded_encode_acc_2d"
+    LAUNCHES[name] += 1
+    PATH_LAUNCHES[name][path] += 1
     return acc

@@ -46,8 +46,9 @@ inline long long blocks_for(long long total) {
 
 // The encode fold of one output element: sum_{j<d, u<m} g[j*stride_j +
 // u*stride_u] * coef[j*m + u], started from 0 and added in (j, u) order with
-// fmaf.  Every encode kernel calls this one function, so the plain and the
-// accumulating encode round an element identically.
+// fmaf.  The encode kernels' general form calls it; their register form and
+// vector path (coded_encode.cu) run the same chain inline, so every path,
+// plain or accumulating, rounds an element identically.
 template <typename TI>
 __device__ __forceinline__ float encode_dot(const TI* g, long long stride_j,
                                             long long stride_u,

@@ -17,6 +17,7 @@ from .coded_decode import LAUNCHES as _DEC_LAUNCHES
 from .coded_decode import (coded_decode, coded_decode_apply,
                            coded_decode_apply_plain, coded_decode_plain)
 from .coded_encode import LAUNCHES as _ENC_LAUNCHES
+from .coded_encode import PATH_LAUNCHES as _ENC_PATHS
 from .coded_encode import (coded_encode, coded_encode_acc,
                            coded_encode_acc_plain, coded_encode_plain)
 from .flash_attn import LAUNCHES as _FLASH_LAUNCHES
@@ -63,8 +64,15 @@ def launch_counts() -> dict[str, int]:
     return {**_ENC_LAUNCHES, **_DEC_LAUNCHES, **_FLASH_LAUNCHES}
 
 
+def path_counts() -> dict[str, dict[str, int]]:
+    """The encode kernels' launches so far by path: {variant: {"vector": n,
+    "scalar": n}}."""
+    return {k: dict(v) for k, v in _ENC_PATHS.items()}
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count to 0."""
-    for table in (_ENC_LAUNCHES, _DEC_LAUNCHES, _FLASH_LAUNCHES):
+    """Set every kernel's launch count, and the encode path counts, to 0."""
+    for table in (_ENC_LAUNCHES, _DEC_LAUNCHES, _FLASH_LAUNCHES,
+                  *_ENC_PATHS.values()):
         for k in table:
             table[k] = 0

@@ -101,6 +101,111 @@ def test_step_on_the_card_matches_plain_backend(schedule, packed, wire):
                                atol=tol * scale)
 
 
+# the encode sweeps of chip_smoke.py (the serving path's encode shape too)
+ENC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (8, 1024, 8), (31, 96, 3),
+         (2, 1001, 7), (1, 171737, 2), (1, 75968, 2)]
+ENC3D = [(3, 16, 2, 128), (4, 256, 2, 64), (2, 40, 5, 96), (2, 7, 3, 33),
+         (1, 3072, 2, 2048)]
+ACC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (2, 1001, 7), (1, 171737, 2)]
+ACC3D = [(2, 7, 3, 33), (2, 40, 5, 96), (3, 16, 2, 128), (1, 3072, 2, 2048)]
+# the edges of the vector path: R of 1-9 and 33 (a multiple of the vector
+# or not), V tails of the 2D path, 2D G[j] slabs of V*m elements that are
+# or are not whole vectors, and the register forms m = 1..4 beside the
+# general one (d*m > 8, m > 4)
+EDGE3D = [(1, 5, 2, r) for r in range(1, 10)] + [(2, 7, 2, 33), (2, 3, 4, 8),
+                                                 (1, 9, 1, 16), (3, 4, 3, 8)]
+EDGE2D = [(1, v, 2) for v in (1, 3, 4, 5, 7, 8, 9, 17)] + [
+    (2, 37, 3), (2, 33, 4), (2, 36, 2), (8, 13, 1), (1, 1001, 1), (3, 64, 4),
+    (1, 21, 5)]
+
+
+def _offset_copy(x):
+    """``x``'s values in a contiguous view whose base lies one element past
+    an aligned allocation: the kernel's scalar path."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _enc_inputs(g, shape, dtype):
+    G = torch.randn(*shape, generator=g).to(dtype).cuda()
+    C = torch.randn(shape[0], shape[2], generator=g).cuda()
+    out = (shape[1], shape[3]) if len(shape) == 4 else (shape[1],)
+    return G, C, torch.randn(*out, generator=g).cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_kernels_match_plain_and_paths_agree_bitwise_on_the_card(dtype):
+    """All four encode variants against their plain versions at the sweeps
+    of chip_smoke.py; at every shape the scalar path (G, or acc, as a view
+    one element off an aligned base) gives the aligned call's bits, and the
+    fused fold equals ``acc + coded_encode(G, C, f32)`` bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.coded_encode import encode_path
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(3)
+    ops.reset_launch_counts()
+    for shape in ENC2D + ENC3D:
+        G, C, _ = _enc_inputs(g, shape, dtype)
+        G1 = _offset_copy(G)
+        for out_dtype in (None, torch.float32):
+            got = coded_encode(G, C, out_dtype=out_dtype)
+            want = coded_encode_plain(G, C, out_dtype=out_dtype)
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            assert encode_path(G1, got) == "scalar"
+            assert torch.equal(coded_encode(G1, C, out_dtype=out_dtype), got)
+    for shape in ACC2D + ACC3D:
+        G, C, acc0 = _enc_inputs(g, shape, dtype)
+        acc = acc0.clone()
+        assert coded_encode_acc(acc, G, C) is acc
+        torch.testing.assert_close(acc, coded_encode_acc_plain(acc0, G, C),
+                                   rtol=tol, atol=tol)
+        assert torch.equal(acc, acc0 + coded_encode(G, C,
+                                                    out_dtype=torch.float32))
+        for G_, acc_ in ((_offset_copy(G), acc0.clone()), (G, _offset_copy(acc0))):
+            assert encode_path(G_, acc_) == "scalar"
+            assert torch.equal(coded_encode_acc(acc_, G_, C), acc)
+    paths = ops.path_counts()
+    # the main path's shapes take the vector path where they are aligned
+    assert all(paths[k]["vector"] > 0 and paths[k]["scalar"] > 0
+               for k in paths), paths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_encode_edges_are_bitwise_on_the_card(dtype):
+    """R of 1-9 and 33, 2D V tails, the register forms and the general
+    one: each against the plain version, and the aligned call (vector where
+    the shape allows it) bit for bit equal to the scalar path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.coded_encode import encode_path
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    per_vector = 16 // torch.empty((), dtype=dtype).element_size()
+    g = torch.Generator().manual_seed(4)
+    for shape in EDGE3D + EDGE2D:
+        G, C, acc0 = _enc_inputs(g, shape, dtype)
+        d, _, m = shape[:3]
+        got = coded_encode(G, C, out_dtype=torch.float32)
+        want = coded_encode_plain(G, C, out_dtype=torch.float32)
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+        whole = (shape[3] % per_vector == 0 if len(shape) == 4
+                 else d == 1 or shape[1] * m % per_vector == 0)
+        vector = m <= 4 and d * m <= 8 and whole
+        assert encode_path(G, got) == ("vector" if vector else "scalar")
+        assert torch.equal(coded_encode(_offset_copy(G), C,
+                                        out_dtype=torch.float32), got)
+        assert torch.equal(coded_encode(G, C), got.to(dtype))
+        acc = acc0.clone()
+        coded_encode_acc(acc, G, C)
+        assert torch.equal(acc, acc0 + got)
+        assert torch.equal(coded_encode_acc(_offset_copy(acc0), G, C), acc)
+
+
 HYPER = {"lr": 1e-2, "momentum": 0.9, "scale": 0.5}
 
 

@@ -180,6 +180,59 @@ def test_ops_modes_and_launch_counts():
     assert all(v == 0 for v in ops.launch_counts().values())
 
 
+def _at(shape, dtype, offset=0):
+    """A contiguous tensor of ``shape`` whose base lies ``offset`` elements
+    past an aligned allocation."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=TDT[dtype])[offset:].view(shape)
+
+
+# (G shape, dtype, G offset, out offset, path): the register form needs
+# d*m <= 8 and m <= 4, both bases 16-byte aligned and every vector too: in
+# 3D R a multiple of 16 bytes' worth of G (4 f32, 8 bf16), in 2D with d > 1
+# each G[j] of V*m elements; a 2D V tail stays on the vector path (the
+# kernel's own scalar loop takes it)
+ENCODE_PATHS = [
+    ((1, 171737, 2), "float32", 0, 0, "vector"),
+    ((1, 171737, 2), "bfloat16", 0, 0, "vector"),
+    ((1, 75968, 2), "float32", 0, 0, "vector"),
+    ((1, 3072, 2, 2048), "float32", 0, 0, "vector"),
+    ((1, 3072, 2, 2048), "bfloat16", 0, 0, "vector"),
+    ((1, 4, 2), "float32", 0, 0, "vector"),
+    ((1, 3, 2), "float32", 0, 0, "vector"),
+    ((1, 171737, 2), "float32", 1, 0, "scalar"),
+    ((1, 171737, 2), "bfloat16", 0, 1, "scalar"),
+    ((1, 3072, 2, 2048), "float32", 0, 3, "scalar"),
+    ((1, 3072, 2, 2048), "float32", 4, 4, "vector"),
+    ((1, 5, 2, 4), "float32", 0, 0, "vector"),
+    ((1, 5, 2, 6), "float32", 0, 0, "scalar"),
+    ((1, 5, 2, 4), "bfloat16", 0, 0, "scalar"),
+    ((1, 5, 2, 8), "bfloat16", 0, 0, "vector"),
+    ((2, 7, 3, 33), "float32", 0, 0, "scalar"),
+    ((8, 64, 1), "float32", 0, 0, "vector"),
+    ((9, 64, 1), "float32", 0, 0, "scalar"),
+    ((2, 64, 4), "float32", 0, 0, "vector"),
+    ((3, 64, 3), "float32", 0, 0, "scalar"),
+    ((1, 64, 5), "float32", 0, 0, "scalar"),
+    ((2, 36, 2), "float32", 0, 0, "vector"),
+    ((2, 36, 2), "bfloat16", 0, 0, "vector"),
+    ((2, 33, 4), "float32", 0, 0, "vector"),
+    ((2, 33, 4), "bfloat16", 0, 0, "scalar"),
+    ((2, 37, 3), "float32", 0, 0, "scalar"),
+    ((8, 13, 1), "float32", 0, 0, "scalar"),
+    ((1, 13, 1), "float32", 0, 0, "vector"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,g_off,o_off,path", ENCODE_PATHS)
+def test_encode_path_choice(shape, dtype, g_off, o_off, path):
+    from repro_torch.kernels.coded_encode import encode_path
+    G = _at(shape, dtype, g_off)
+    out = _at((shape[1], shape[3]) if len(shape) == 4 else (shape[1],),
+              "float32", o_off)
+    assert encode_path(G, out) == path
+
+
 def test_wrappers_reject_bad_shapes():
     with pytest.raises(ValueError):
         coded_encode(torch.zeros(3, 8), torch.zeros(3, 2))
