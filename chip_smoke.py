@@ -13,9 +13,11 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            PyTorch version over ragged sweeps and every path's own shapes
            (the serving path's encode and decode included) in f32 and bf16,
            the plain pair also against ``torch.einsum``, the fused pair bitwise
-           against their two-step spellings on the card, the encodes' scalar
-           path (operands one element off an aligned base) bitwise against
-           their vector path; and times each at the main path's shapes, on
+           against their two-step spellings on the card, the scalar path of
+           the encodes, the 2D decode and the fused decode-apply (operands
+           one element off an aligned base) bitwise against their vector
+           path, the fused decode-apply as one device kernel a call (read by
+           torch.profiler); and times each at the main path's shapes, on
            inputs that are not in the L2 cache, beside its plain version,
            one library call where there is one, and its byte bound; the
            coding kernels also as a run of 64 back-to-back launches and by
@@ -38,8 +40,9 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            ``make_coded_train_step`` (trailing dims -> the 3D kernel
            variants), synchronous and pipelined fused.  Each of the three
            paths has its own counts: the kernel launch counts are set to 0
-           just before it and read just after it; each of its encodes must
-           have taken the vector path.
+           just before it and read just after it; each of its encodes,
+           2D decodes and fused decode-applies must have taken the vector
+           path.
   checks   the synchronous 5 steps on the plain backend on the card, the
            decoded gradient with 2 stragglers against the uncoded gradient,
            packed against per-leaf bitwise; pipelined fill + drain against
@@ -108,7 +111,8 @@ try:
     from repro_torch.kernels.coded_decode import (coded_decode,
                                                   coded_decode_apply,
                                                   coded_decode_apply_plain,
-                                                  coded_decode_plain)
+                                                  coded_decode_plain,
+                                                  apply_path, decode_path)
     from repro_torch.kernels.coded_encode import (coded_encode,
                                                   coded_encode_acc,
                                                   coded_encode_acc_plain,
@@ -176,7 +180,7 @@ def _randn(gen, shape, dtype):
 
 def _offset_copy(x):
     """``x``'s values in a contiguous view whose base lies one element past
-    an aligned allocation: the encode kernels' scalar path."""
+    an aligned allocation: the coding kernels' scalar path."""
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
     view = buf[1:].view(x.shape)
     view.copy_(x)
@@ -301,6 +305,18 @@ def check_kernels():
                 name = "coded_decode_3d" if len(shape) == 3 else "coded_decode_2d"
                 note(name, dtype, _compare(coded_decode, coded_decode_plain,
                                            Fm, W, out_dtype, dtype))
+                if len(shape) == 3:
+                    continue
+                # the 2D scalar path (F one element off an aligned base)
+                # gives the aligned call's bits
+                got = coded_decode(Fm, W, out_dtype=out_dtype)
+                F1 = _offset_copy(Fm)
+                if decode_path(F1, got) != "scalar" or not torch.equal(
+                        coded_decode(F1, W, out_dtype=out_dtype), got):
+                    fail(f"coded_decode{shape} {dtype}: the scalar path "
+                         f"differs from the {decode_path(Fm, got)} path bitwise")
+                errs[name]["paths_bitwise_cases"] = \
+                    errs[name].get("paths_bitwise_cases", 0) + 1
     # what the wrappers must refuse on the card
     G = _randn(gen, (2, 64, 2), F32)
     for bad in (lambda: coded_encode(G.transpose(1, 2).contiguous().transpose(1, 2),
@@ -394,9 +410,22 @@ def check_fused_kernels(gen, errs):
             again = coded_decode_apply(F, W, P0.clone(), MU0.clone(), **HYPER)[2]
             if not torch.equal(again, ss):
                 fail(f"{what}: sum g^2 differs from run to run")
+            # the scalar path (F, P or MU one element off an aligned base)
+            # gives the aligned call's p' and mu' bit for bit
+            for F_, P_, MU_ in ((_offset_copy(F), P0.clone(), MU0.clone()),
+                                (F, _offset_copy(P0), MU0.clone()),
+                                (F, P0.clone(), _offset_copy(MU0))):
+                if apply_path(F_, P_, MU_) != "scalar":
+                    fail(f"{what}: an offset operand kept the vector path")
+                p1, mu1, _ = coded_decode_apply(F_, W, P_, MU_, **HYPER)
+                if not (torch.equal(p1, pn) and torch.equal(mu1, mun)):
+                    fail(f"{what}: the scalar path differs from the "
+                         f"{apply_path(F, P0, MU0)} path bitwise")
             note("coded_decode_apply", dtype, e)
             r = errs["coded_decode_apply"]
             r["max_rel_err_sum_g2"] = max(r.get("max_rel_err_sum_g2", 0.0), ss_rel)
+            r["paths_bitwise_cases"] = r.get("paths_bitwise_cases", 0) + 3
+    errs["coded_decode_apply"]["device_kernels_per_call"] = _apply_kernels_per_call(gen)
     # what the fused wrappers must refuse on the card, and a CPU tensor
     # takes the plain version without a launch
     G = _randn(gen, (1, 64, 2), F32)
@@ -426,6 +455,28 @@ def check_fused_kernels(gen, errs):
                        torch.zeros(128, 2), **HYPER)
     if ops.launch_counts() != before:
         fail("a CPU tensor launched a kernel")
+
+
+def _apply_kernels_per_call(gen):
+    """The device kernels of one ``coded_decode_apply`` call at the main
+    path's bucket, as ``torch.profiler`` records them (after a warm call, so
+    the stream's counter exists): the fused pass and the sum of the partials
+    are one kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n, L, m = APPLY[-1]
+    args = (_randn(gen, (n, L), F32), _randn(gen, (n, m), F32),
+            _randn(gen, (L, m), F32), _randn(gen, (L, m), F32))
+    coded_decode_apply(*args, **HYPER)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        coded_decode_apply(*args, **HYPER)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if len(kernels) != 1 or "decode2d_kernel" not in kernels[0]:
+        fail(f"coded_decode_apply ran {len(kernels)} device kernels a call, "
+             f"not one: {kernels}")
+    return len(kernels)
 
 
 # (B, S, H, Hkv, hd, mask_kind, window, query offset): the sweep of
@@ -693,11 +744,11 @@ def _flash_operands(shape, dtype, gen, isz):
             library, nbytes, flops)
 
 
-def _paths_since(before):
-    """Encode launches by path since the path counts ``before``, summed
-    over the four variants."""
+def _paths_since(before, prefix):
+    """Launches by kernel path since the path counts ``before``, summed
+    over the variants whose names start with ``prefix``."""
     now = ops.path_counts()
-    return {p: sum(now[k][p] - before[k][p] for k in now)
+    return {p: sum(now[k][p] - before[k][p] for k in now if k.startswith(prefix))
             for p in ("vector", "scalar")}
 
 
@@ -731,8 +782,10 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
                                     else F32_FLOP_PER_S)
     paths0 = ops.path_counts()
     ms = time_ms(lambda i: kernel(sets[i % copies]))
-    if kind in ("encode", "encode_acc"):
-        extra["path"] = [p for p, n in _paths_since(paths0).items() if n]
+    if kind in ("encode", "encode_acc", "decode_apply") or (
+            kind == "decode" and len(shape) == 2):
+        prefix = "coded_decode" if kind.startswith("decode") else "coded_encode"
+        extra["path"] = [p for p, n in _paths_since(paths0, prefix).items() if n]
     plain_ms = time_ms(lambda i: plain(sets[i % copies]))
     library_ms = (time_ms(lambda i: library(sets[i % copies]))
                   if library is not None else None)
@@ -836,24 +889,27 @@ def check_packed_per_leaf_small():
                               "schedule": schedule, "wire": wire,
                               "launches": launched})
     say(phase="checks_packed_small", packed_equals_per_leaf_bitwise=True,
-        stragglers=[1], cases=cases, encode_launches_by_kernel_path=_paths_since(paths0))
+        stragglers=[1], cases=cases,
+        encode_launches_by_kernel_path=_paths_since(paths0, "coded_encode"),
+        decode_launches_by_kernel_path=_paths_since(paths0, "coded_decode"))
 
 
 def _rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-ENCODE_PATHS = {}   # the encode launches of each counted path, by kernel path
+KERNEL_PATHS = {}   # launches of each counted path by kernel path, of the
+                    # kernels that have two (encodes, 2D decode, decode-apply)
 
 
 def _note_paths(label, require_vector=True):
-    """Record the encode launches of the path ``label`` by kernel path, read
-    with its launch counts; fail if one of them left the vector path."""
+    """Record the launches of the path ``label`` by kernel path, read with
+    its launch counts; fail if one of them left the vector path."""
     paths = {k: v for k, v in ops.path_counts().items() if v["vector"] or v["scalar"]}
-    ENCODE_PATHS[label] = paths
+    KERNEL_PATHS[label] = paths
     scalar = {k: v["scalar"] for k, v in paths.items() if v["scalar"]}
     if scalar and require_vector:
-        fail(f"{label}: encodes took the scalar path {scalar}")
+        fail(f"{label}: kernels took the scalar path {scalar}")
     return paths
 
 
@@ -1339,7 +1395,7 @@ def run_serve_path(args):
         stragglers=[list(r.stragglers) for r in results],
         wall_ms=[r.wall_s * 1e3 for r in results], step_ms=step_ms,
         launches_per_batch=per_batch, launches=counts,
-        encode_launches_by_kernel_path=serve_paths,
+        launches_by_kernel_path=serve_paths,
         plain_flash_calls=plain_calls, peak_memory_bytes=peak,
         uncoded_forward_ms=direct_ms, max_abs_logit=scale,
         max_abs_err_vs_uncoded=err, tolerance=SERVE_REL_TOL * max(1.0, scale),
@@ -1451,14 +1507,18 @@ def main():
                 launch_floor_ms=floor["ms"],
                 launch_floor_ms_per_launch_run=floor["ms_per_launch_run"],
                 host_us_per_call=meas["host_us_per_call"])
-        if name.startswith("coded_encode"):
+        if name in ops.path_counts():
             kernels[-1].update(
                 path_at_timed_shape=meas["path"],
-                launches_by_kernel_path=ENCODE_PATHS[path_of[name]][name])
+                launches_by_kernel_path=KERNEL_PATHS[path_of[name]][name])
+        if name == "flash_attention":
+            bf16 = other_shapes["flash_attention"][0]
+            kernels[-1]["bf16"] = {k: bf16[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if kernels[-1]["launches"] == 0:
             fail(f"kernel {name} was not launched on its path, {path_of[name]}")
     report = {"kernels": kernels, "launches_by_path": counts,
-              "encode_launches_by_kernel_path": ENCODE_PATHS}
+              "launches_by_kernel_path": KERNEL_PATHS}
     if args.out:
         out = pathlib.Path(args.out)
         out.parent.mkdir(parents=True, exist_ok=True)

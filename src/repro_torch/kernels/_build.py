@@ -125,6 +125,44 @@ def ptxas_report() -> dict[str, dict]:
     return out
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of every entry point of a library
+    built from these sources (or from a copy with the same C interface)."""
+    # argtypes on every entry point: without them ctypes passes a Python int
+    # as a 32-bit int (cutting pointers) and a Python float as a double
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    signatures = {
+        # (G, C, out, d, V, m, R, rank3, in_dtype, out_dtype, vec, stream)
+        "coded_encode_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32,
+                                i32, i32, ptr],
+        # (F, W, out, n, V, m, R, rank3, in_dtype, out_dtype, vec, stream)
+        "coded_decode_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32,
+                                i32, i32, ptr],
+        # (G, C, acc, d, V, m, R, rank3, in_dtype, vec, stream)
+        "coded_encode_acc_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32,
+                                    i32, i32, ptr],
+        # (F, W, P, MU, partials, done, ss, n, V, m, lr, momentum, scale,
+        #  in_dtype, num_partials, vec, stream)
+        "coded_decode_apply_launch": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                                      i64, i32, f32, f32, f32, i32, i64, i32,
+                                      ptr],
+        # (q, k, v, out, B, Sq, Sk, H, Hkv, hd, q/k/v strides (b, s, h),
+        #  mask_kind, window, q_pos0, scale, dtype, stream)
+        "flash_attention_launch": [ptr, ptr, ptr, ptr, i32, i64, i64, i32, i32,
+                                   i32] + [i64] * 9 + [i32, i64, i64, f32, i32,
+                                                       ptr],
+        "flash_attention_smem_bytes": [i32, i32],   # (dtype, hd)
+        "empty_kernel_launch": [ptr],               # (stream)
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = i32
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded library, built first when its sources have no build yet."""
     global _lib, last_build
@@ -135,37 +173,7 @@ def load() -> ctypes.CDLL:
     built = not lib_path.exists()
     if built:
         lib_path = build()
-    lib = ctypes.CDLL(str(lib_path))
-    # argtypes on every entry point: without them ctypes passes a Python int
-    # as a 32-bit int (cutting pointers) and a Python float as a double
-    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_float)
-    signatures = {
-        # (G, C, out, d, V, m, R, rank3, in_dtype, out_dtype, vec, stream)
-        "coded_encode_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32,
-                                i32, i32, ptr],
-        # (F, W, out, n, V, m, R, rank3, in_dtype, out_dtype, stream)
-        "coded_decode_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32, i32,
-                                i32, ptr],
-        # (G, C, acc, d, V, m, R, rank3, in_dtype, vec, stream)
-        "coded_encode_acc_launch": [ptr, ptr, ptr, i32, i64, i32, i64, i32,
-                                    i32, i32, ptr],
-        # (F, W, P, MU, partials, ss, n, V, m, lr, momentum, scale,
-        #  in_dtype, num_partials, stream)
-        "coded_decode_apply_launch": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
-                                      i32, f32, f32, f32, i32, i64, ptr],
-        # (q, k, v, out, B, Sq, Sk, H, Hkv, hd, q/k/v strides (b, s, h),
-        #  mask_kind, window, q_pos0, scale, dtype, stream)
-        "flash_attention_launch": [ptr, ptr, ptr, ptr, i32, i64, i64, i32, i32,
-                                   i32] + [i64] * 9 + [i32, i64, i64, f32, i32,
-                                                       ptr],
-    }
-    signatures["flash_attention_smem_bytes"] = [i32, i32]   # (dtype, hd)
-    signatures["empty_kernel_launch"] = [ptr]                # (stream)
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = i32
+    lib = bind(ctypes.CDLL(str(lib_path)))
     _lib = lib
     last_build = {"seconds": time.perf_counter() - t0, "lib": str(lib_path),
                   "built": built}

@@ -54,10 +54,3 @@ def call(fn_name: str, device: torch.device, *args):
             f"{fn_name} failed with code {rc} (negative: refused by the "
             f"launcher, positive: cudaError_t) for arguments {args}")
 
-
-def launch(fn_name: str, x: torch.Tensor, coef: torch.Tensor,
-           out: torch.Tensor, k: int, V: int, m: int, R: int, rank3: bool):
-    """Call an ``(in, coef, out, k, V, m, R, rank3, in_dtype, out_dtype)``
-    entry point (the plain decode) on ``x``'s device."""
-    call(fn_name, x.device, x.data_ptr(), coef.data_ptr(), out.data_ptr(),
-         k, V, m, R, int(rank3), DTYPE_CODES[x.dtype], DTYPE_CODES[out.dtype])

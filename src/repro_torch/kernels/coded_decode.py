@@ -8,24 +8,38 @@ Replaces the TPU kernel ``repro/kernels/coded_decode.py`` (``coded_decode``:
 
 is a skinny product (``m`` is a handful of columns), so on an H100 it is
 bound by bytes: one read of the ``(n, V[, R])`` stack plus one write of the
-output, ``n*V*R*sizeof(in) + V*m*R*sizeof(out)`` over 3.35 TB/s.  The kernel
-(``csrc/coded_decode.cu``) reads ``F`` once for ``m <= 8``: a thread per
-``v`` (2D) or ``(v, r)`` (3D) walks the ``n`` rows in order with up to 8 f32
-accumulators in registers, ``W`` in shared memory, a masked ragged tail in
-place of tiles that had to divide ``V``.  It serves the gather schedule
-(full stack) and the a2a schedule (``V/n`` slice) alike; bf16 ``F`` with
-f32 output is the wire case.
+output, ``n*V*R*sizeof(in) + V*m*R*sizeof(out)`` over 3.35 TB/s.  In the
+2D kernel (``csrc/coded_decode.cu``) a thread owns 4 consecutive ``v``: it
+reads ``F`` in 16-byte (f32) or 8-byte (bf16) vectors, every row of its item
+in flight before its first multiply-add, and writes its ``4*m`` consecutive
+outputs as 16-byte stores; one block per 256 items (128 or 64 where that
+would leave SMs idle), ``W`` in registers when ``n*m <= 16``
+(``REG_TERMS``; the training and serving codes) and in shared memory above
+that, ``F`` read evict-first when the L2 could hold it.  The vector path
+takes ``m`` in ``VEC_M``; a scalar path in the same kernel takes a ``V``
+tail, bases that are not 16-byte aligned and rows ``F[i]`` that are not;
+``decode_path`` picks the path from the shapes and ``data_ptr()``, and
+``PATH_LAUNCHES`` counts each.  Other ``m`` run a general scalar form.  The
+3D kernel keeps a thread per ``(v, r)``, ``W`` in shared memory.  On every
+path an output element is the same ``fmaf`` chain from 0 over the rows in
+order, in f32, rounded once to ``out_dtype``: the paths agree bit for bit.
+It serves the gather schedule (full stack) and the a2a schedule (``V/n``
+slice) alike; bf16 ``F`` with f32 output is the wire case.
 
 ``coded_decode_apply`` replaces the TPU kernel ``coded_decode_apply``
 (``_decode_apply_kernel``): for one packed wire bucket of the pipelined step
 it decodes, scales, and applies SGD-momentum to the ``(L, m)`` f32 bucket
 views of the parameters and the momentum in the same pass, and sums ``g²``
 for the step's gradient norm.  Bound by bytes: one read of ``F`` and one
-read and write of ``P`` and ``MU``.  The contraction is the decode's own and
-the update rounds after every multiply and add, as PyTorch's unfused ops do,
-so ``p'`` and ``mu'`` equal ``coded_decode`` followed by the optimizer's
-expressions bit for bit.  ``Σg²`` is summed per block and then over the
-blocks in a fixed order (no float atomics): the same from run to run.
+read and write of ``P`` and ``MU``, which the vector path moves as 16-byte
+vectors beside ``F``'s.  The contraction is the decode's own and the update
+rounds after every multiply and add, as PyTorch's unfused ops do, so ``p'``
+and ``mu'`` equal ``coded_decode`` followed by the optimizer's expressions
+bit for bit.  It is one launch: each block writes its ``Σg²`` partial (a
+fixed tree over its threads) and the last block to finish, found by an
+integer atomic on a counter of the calling stream's own, adds the partials
+in index order and resets the counter (no float atomics: the same from call
+to call on one card).
 
 On a CUDA tensor each wrapper launches its kernel or raises; the plain
 version is taken only for a tensor that lies on the CPU.
@@ -39,8 +53,17 @@ from . import _launch
 # launches of each variant; the wrapper adds one per kernel launch
 LAUNCHES = {"coded_decode_2d": 0, "coded_decode_3d": 0,
             "coded_decode_apply": 0}
+# the launches of the 2D kernel by its path, "vector" or "scalar"
+PATH_LAUNCHES = {k: {"vector": 0, "scalar": 0}
+                 for k in ("coded_decode_2d", "coded_decode_apply")}
 
-THREADS = 256    # CG_THREADS of csrc/common.cuh: one Σg² partial per block
+THREADS = 256    # CG_THREADS of csrc/common.cuh: threads a block
+# the 2D kernel's vector path takes these m (csrc/coded_decode.cu,
+# vector_m); any other m runs the general scalar form
+VEC_M = (1, 2, 3, 4, 8)
+# n*m up to this: W in registers, above it in shared memory
+# (csrc/coded_decode.cu, kRegTerms); either form has both paths
+REG_TERMS = 16
 
 
 def _check_shapes(F: torch.Tensor, W: torch.Tensor):
@@ -50,6 +73,56 @@ def _check_shapes(F: torch.Tensor, W: torch.Tensor):
     if W.ndim != 2 or W.shape[0] != F.shape[0]:
         raise ValueError(f"W must be (n, m) with n = {F.shape[0]}, got "
                          f"{tuple(W.shape)}")
+
+
+def decode_path(F: torch.Tensor, out: torch.Tensor) -> str:
+    """The 2D kernel's path for decoding ``F (n, V)`` into ``out (V, m)``
+    (or for the fused update of ``P`` or ``MU``): ``"vector"`` when ``m`` is
+    one of ``VEC_M`` and both bases are 16-byte aligned, and so is each row
+    ``F[i]`` when ``n > 1`` (``V*sizeof(in)`` a multiple of 16; one rule for
+    both input types, though bf16 is read in 8-byte vectors); else
+    ``"scalar"``.  A ``V`` that is no multiple of the vector stays on
+    the vector path (the kernel's scalar loop takes the tail).  The
+    launcher holds the vector path to the same rule."""
+    if F.ndim != 2:
+        raise ValueError(f"decode_path takes a 2D F, got {tuple(F.shape)}")
+    n, V = F.shape
+    ok = (out.shape[-1] in VEC_M
+          and (n == 1 or V * F.element_size() % 16 == 0)
+          and F.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    return "vector" if ok else "scalar"
+
+
+def apply_path(F: torch.Tensor, P: torch.Tensor, MU: torch.Tensor) -> str:
+    """The fused decode-apply's path: ``"vector"`` when ``decode_path``
+    gives it for both ``P`` and ``MU``, else ``"scalar"``."""
+    return ("vector" if decode_path(F, P) == decode_path(F, MU) == "vector"
+            else "scalar")
+
+
+def partial_slots(L: int) -> int:
+    """Slots of the ``Σg²`` partials scratch for a bucket of ``L`` rows: one
+    per ``THREADS`` rows.  Bounds the kernel's grid on either path, which is
+    at most one block per ``THREADS`` of its items (``L`` on the scalar
+    path, fewer on the vector path); the launcher refuses a larger grid."""
+    return -(-L // THREADS)
+
+
+# one counter of finished blocks per (device, stream): the kernel leaves it
+# 0, so one stream's launches can share it; two streams need two
+_DONE_COUNTERS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _done_counter(device: torch.device) -> torch.Tensor:
+    """The current stream's counter of finished blocks on ``device``, made
+    (zeroed, on that stream) at its first use."""
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    if key not in _DONE_COUNTERS:
+        with torch.cuda.device(device):
+            _DONE_COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
+                                              device=device)
+    return _DONE_COUNTERS[key]
 
 
 def coded_decode_plain(F: torch.Tensor, W: torch.Tensor, *,
@@ -102,8 +175,16 @@ def coded_decode(F: torch.Tensor, W: torch.Tensor, *,
     wts = _launch.coef_f32("W", W, F)
     out = torch.empty((V, m, R) if rank3 else (V, m), dtype=out_dtype,
                       device=F.device)
-    _launch.launch("coded_decode_launch", F, wts, out, n, V, m, R, rank3)
-    LAUNCHES["coded_decode_3d" if rank3 else "coded_decode_2d"] += 1
+    path = "scalar" if rank3 else decode_path(F, out)
+    _launch.call("coded_decode_launch", F.device, F.data_ptr(),
+                 wts.data_ptr(), out.data_ptr(), n, V, m, R, int(rank3),
+                 _launch.DTYPE_CODES[F.dtype], _launch.DTYPE_CODES[out_dtype],
+                 int(path == "vector"))
+    if rank3:
+        LAUNCHES["coded_decode_3d"] += 1
+    else:
+        LAUNCHES["coded_decode_2d"] += 1
+        PATH_LAUNCHES["coded_decode_2d"][path] += 1
     return out
 
 
@@ -173,13 +254,16 @@ def coded_decode_apply(F: torch.Tensor, W: torch.Tensor, P: torch.Tensor,
         raise ValueError(f"weight block n*m = {n * m} floats exceeds the "
                          f"kernel's 48 KB of shared memory")
     wts = _launch.coef_f32("W", W, F)
-    blocks = -(-L // THREADS)
-    partials = torch.empty((blocks,), dtype=torch.float32, device=F.device)
+    slots = partial_slots(L)
+    partials = torch.empty((slots,), dtype=torch.float32, device=F.device)
     ss = torch.empty((), dtype=torch.float32, device=F.device)
+    path = apply_path(F, P, MU)
     _launch.call("coded_decode_apply_launch", F.device, F.data_ptr(),
                  wts.data_ptr(), P.data_ptr(), MU.data_ptr(),
-                 partials.data_ptr(), ss.data_ptr(), n, L, m, float(lr),
-                 float(momentum), float(scale), _launch.DTYPE_CODES[F.dtype],
-                 blocks)
+                 partials.data_ptr(), _done_counter(F.device).data_ptr(),
+                 ss.data_ptr(), n, L, m, float(lr), float(momentum),
+                 float(scale), _launch.DTYPE_CODES[F.dtype], slots,
+                 int(path == "vector"))
     LAUNCHES["coded_decode_apply"] += 1
+    PATH_LAUNCHES["coded_decode_apply"][path] += 1
     return P, MU, ss

@@ -47,71 +47,12 @@
 // __fadd_rn, so the result equals `acc + coded_encode(G, C)` (f32 out) bit
 // for bit; seeding the chain with acc would save an add and round
 // differently.
-#include <algorithm>
-#include <cstdint>
-
 #include "common.cuh"
-
-// the vector path was asked for operands it cannot take
-#define CG_ERR_PATH (-3)
 
 namespace {
 
 constexpr int kRegTerms = 8;   // d*m up to this: coefficients in registers
 constexpr int kMaxRegM = 4;    // ... and m up to this (the 2D lanes are static)
-
-// 16 bytes of G, read once: evict first
-template <typename T>
-__device__ __forceinline__ uint4 load16_cs(const T* p) {
-  return __ldcs(reinterpret_cast<const uint4*>(p));
-}
-
-__device__ __forceinline__ unsigned word(const uint4& r, int k) {
-  return k == 0 ? r.x : k == 1 ? r.y : k == 2 ? r.z : r.w;
-}
-
-// element l of a 16-byte vector of T, as f32 (the conversion of cg::to_f32)
-template <typename T> __device__ __forceinline__ float lane(const uint4& r, int l);
-template <> __device__ __forceinline__ float lane<float>(const uint4& r, int l) {
-  return __uint_as_float(word(r, l));
-}
-template <> __device__ __forceinline__ float lane<__nv_bfloat16>(const uint4& r, int l) {
-  const unsigned w = word(r, l >> 1);
-  return cg::to_f32(__ushort_as_bfloat16((unsigned short)((l & 1) ? w >> 16 : w & 0xffffu)));
-}
-
-// P results to P consecutive elements of out (16-byte aligned, or 8-byte
-// for P = 4 bf16)
-template <typename TO, int P>
-__device__ __forceinline__ void store_out(TO* dst, const float (&s)[P]) {
-  constexpr int kWords = P * (int)sizeof(TO) / 4;
-  unsigned w[kWords];
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    if constexpr (sizeof(TO) == 4) {
-      w[k] = __float_as_uint(s[k]);
-    } else {
-      w[k] = (unsigned)__bfloat16_as_ushort(cg::from_f32<TO>(s[2 * k])) |
-             ((unsigned)__bfloat16_as_ushort(cg::from_f32<TO>(s[2 * k + 1])) << 16);
-    }
-  }
-  unsigned* d = reinterpret_cast<unsigned*>(dst);
-#pragma unroll
-  for (int k = 0; k + 4 <= kWords; k += 4)
-    *reinterpret_cast<uint4*>(d + k) = make_uint4(w[k], w[k + 1], w[k + 2], w[k + 3]);
-  if constexpr (kWords % 4 == 2)
-    *reinterpret_cast<uint2*>(d + kWords - 2) = make_uint2(w[kWords - 2], w[kWords - 1]);
-}
-
-// P consecutive acc elements, read ahead of the sums (16-byte aligned)
-template <int P>
-__device__ __forceinline__ void load_acc(const float* src, float (&a)[P]) {
-#pragma unroll
-  for (int k = 0; k < P; k += 4) {
-    const float4 x = *reinterpret_cast<const float4*>(src + k);
-    a[k] = x.x; a[k + 1] = x.y; a[k + 2] = x.z; a[k + 3] = x.w;
-  }
-}
 
 // write the P sums of one item: to out, or added into acc (read ahead as a)
 template <typename TO, bool ACC, int P>
@@ -120,7 +61,7 @@ __device__ __forceinline__ void finish_vec(TO* o, float (&s)[P], const float (&a
 #pragma unroll
     for (int p = 0; p < P; ++p) s[p] = __fadd_rn(a[p], s[p]);
   }
-  store_out<TO, P>(o, s);
+  cg::store_run<TO, P>(o, s);
 }
 
 template <typename TO, bool ACC>
@@ -143,16 +84,6 @@ struct Walk {
   }
 };
 
-// coefficients of the register form: c[j][u] = C[j, u] for j < d
-template <int M, int DMAX>
-__device__ __forceinline__ void load_coef_regs(const float* __restrict__ C, int d,
-                                               float (&c)[DMAX][M]) {
-#pragma unroll
-  for (int j = 0; j < DMAX; ++j)
-#pragma unroll
-    for (int u = 0; u < M; ++u) c[j][u] = j < d ? __ldg(C + j * M + u) : 0.f;
-}
-
 // The 3D fold, out (V, R).  M > 0: m == M with d <= kRegTerms / M,
 // coefficients in registers, the vector path when `vec`; M == 0: any (d,
 // m), coefficients in shared memory, scalar only.
@@ -172,7 +103,7 @@ encode3d_kernel(const TI* __restrict__ G, const float* __restrict__ C,
   } else {
     constexpr int DMAX = kRegTerms / M;
     float c[DMAX][M];
-    load_coef_regs<M, DMAX>(C, d, c);
+    cg::load_coef_regs<M, DMAX>(C, d, c);
     if (vec) {
       constexpr int P = 16 / sizeof(TI);
       Walk a(tid, stride, R / P);
@@ -191,12 +122,12 @@ encode3d_kernel(const TI* __restrict__ G, const float* __restrict__ C,
 #pragma unroll
           for (int u = 0; u < M; ++u)
             if (j < d) {
-              xa[j][u] = load16_cs(ga + j * sj + u * R);
-              if (hb) xb[j][u] = load16_cs(gb + j * sj + u * R);
+              xa[j][u] = cg::load16_cs(ga + j * sj + u * R);
+              if (hb) xb[j][u] = cg::load16_cs(gb + j * sj + u * R);
             }
         if constexpr (ACC) {
-          load_acc<P>(oa, acc_a);
-          if (hb) load_acc<P>(ob, acc_b);
+          cg::load_f32s<P>(oa, acc_a);
+          if (hb) cg::load_f32s<P>(ob, acc_b);
         }
         float sa[P], sb[P];
 #pragma unroll
@@ -207,8 +138,8 @@ encode3d_kernel(const TI* __restrict__ G, const float* __restrict__ C,
 #pragma unroll
             for (int u = 0; u < M; ++u)
               if (j < d) {
-                sa[p] = fmaf(lane<TI>(xa[j][u], p), c[j][u], sa[p]);
-                sb[p] = fmaf(lane<TI>(xb[j][u], p), c[j][u], sb[p]);
+                sa[p] = fmaf(cg::lane<TI>(xa[j][u], p), c[j][u], sa[p]);
+                sb[p] = fmaf(cg::lane<TI>(xb[j][u], p), c[j][u], sb[p]);
               }
         }
         finish_vec<TO, ACC, P>(oa, sa, acc_a);
@@ -248,7 +179,7 @@ encode2d_kernel(const TI* __restrict__ G, const float* __restrict__ C,
   } else {
     constexpr int DMAX = kRegTerms / M;
     float c[DMAX][M];
-    load_coef_regs<M, DMAX>(C, d, c);
+    cg::load_coef_regs<M, DMAX>(C, d, c);
     long long v0 = 0;                              // first output of the scalar loop
     if (vec) {
       // item q: outputs [qP, qP + P), whose (v, u) run of P*M elements is
@@ -266,12 +197,12 @@ encode2d_kernel(const TI* __restrict__ G, const float* __restrict__ C,
 #pragma unroll
           for (int w = 0; w < M; ++w)
             if (j < d) {
-              xa[j][w] = load16_cs(G + j * sj + (qa * M + w) * P);
-              if (hb) xb[j][w] = load16_cs(G + j * sj + (qb * M + w) * P);
+              xa[j][w] = cg::load16_cs(G + j * sj + (qa * M + w) * P);
+              if (hb) xb[j][w] = cg::load16_cs(G + j * sj + (qb * M + w) * P);
             }
         if constexpr (ACC) {
-          load_acc<P>(out + qa * P, acc_a);
-          if (hb) load_acc<P>(out + qb * P, acc_b);
+          cg::load_f32s<P>(out + qa * P, acc_a);
+          if (hb) cg::load_f32s<P>(out + qb * P, acc_b);
         }
         float sa[P], sb[P];
 #pragma unroll
@@ -283,8 +214,8 @@ encode2d_kernel(const TI* __restrict__ G, const float* __restrict__ C,
             for (int u = 0; u < M; ++u)
               if (j < d) {
                 const int e = p * M + u;
-                sa[p] = fmaf(lane<TI>(xa[j][e / P], e % P), c[j][u], sa[p]);
-                sb[p] = fmaf(lane<TI>(xb[j][e / P], e % P), c[j][u], sb[p]);
+                sa[p] = fmaf(cg::lane<TI>(xa[j][e / P], e % P), c[j][u], sa[p]);
+                sb[p] = fmaf(cg::lane<TI>(xb[j][e / P], e % P), c[j][u], sb[p]);
               }
         }
         finish_vec<TO, ACC, P>(out + qa * P, sa, acc_a);
@@ -307,28 +238,6 @@ encode2d_kernel(const TI* __restrict__ G, const float* __restrict__ C,
 
 __global__ void empty_kernel() {}
 
-int sm_count() {
-  static int cached[64] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
-  if (cached[dev] == 0 &&
-      cudaDeviceGetAttribute(&cached[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 132;
-  return cached[dev];
-}
-
-// blocks for `work` thread tasks: no more than fit on the card at once
-// (`per_sm`, the kernel's occupancy, queried on its first launch)
-template <typename K>
-unsigned grid_for(K kernel, int& per_sm, long long work, size_t smem) {
-  if (per_sm == 0 &&
-      (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, CG_THREADS, smem) !=
-           cudaSuccess || per_sm < 1))
-    per_sm = 1;
-  const long long want = (work + CG_THREADS - 1) / CG_THREADS;
-  return (unsigned)std::max(1LL, std::min(want, (long long)per_sm * sm_count()));
-}
-
 template <typename TI, typename TO, bool ACC, int M>
 void launch_m(const void* G, const float* C, void* out, int d, long long V, int m,
               long long R, int rank3, int vec, cudaStream_t st) {
@@ -337,11 +246,11 @@ void launch_m(const void* G, const float* C, void* out, int d, long long V, int 
   const size_t smem = M == 0 ? (size_t)d * m * sizeof(float) : 0;
   if (rank3) {
     auto k = encode3d_kernel<TI, TO, ACC, M>;
-    const unsigned grid = grid_for(k, per_sm_3d, vec ? V * (R / P) : V * R, smem);
+    const unsigned grid = cg::grid_for(k, per_sm_3d, vec ? V * (R / P) : V * R, smem);
     k<<<grid, CG_THREADS, smem, st>>>((const TI*)G, C, (TO*)out, d, V, m, R, vec);
   } else {
     auto k = encode2d_kernel<TI, TO, ACC, M>;
-    const unsigned grid = grid_for(k, per_sm_2d, vec ? V / P : V, smem);
+    const unsigned grid = cg::grid_for(k, per_sm_2d, vec ? V / P : V, smem);
     k<<<grid, CG_THREADS, smem, st>>>((const TI*)G, C, (TO*)out, d, V, m, vec);
   }
 }

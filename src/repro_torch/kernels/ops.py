@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from .coded_decode import LAUNCHES as _DEC_LAUNCHES
+from .coded_decode import PATH_LAUNCHES as _DEC_PATHS
 from .coded_decode import (coded_decode, coded_decode_apply,
                            coded_decode_apply_plain, coded_decode_plain)
 from .coded_encode import LAUNCHES as _ENC_LAUNCHES
@@ -65,14 +66,15 @@ def launch_counts() -> dict[str, int]:
 
 
 def path_counts() -> dict[str, dict[str, int]]:
-    """The encode kernels' launches so far by path: {variant: {"vector": n,
-    "scalar": n}}."""
-    return {k: dict(v) for k, v in _ENC_PATHS.items()}
+    """Launches so far by kernel path of the kernels that have two (the
+    four encode variants, the 2D decode and the fused decode-apply):
+    {variant: {"vector": n, "scalar": n}}."""
+    return {k: dict(v) for k, v in {**_ENC_PATHS, **_DEC_PATHS}.items()}
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch count, and the encode path counts, to 0."""
+    """Set every kernel's launch count, and the path counts, to 0."""
     for table in (_ENC_LAUNCHES, _DEC_LAUNCHES, _FLASH_LAUNCHES,
-                  *_ENC_PATHS.values()):
+                  *_ENC_PATHS.values(), *_DEC_PATHS.values()):
         for k in table:
             table[k] = 0

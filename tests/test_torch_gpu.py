@@ -169,7 +169,8 @@ def test_encode_kernels_match_plain_and_paths_agree_bitwise_on_the_card(dtype):
         for G_, acc_ in ((_offset_copy(G), acc0.clone()), (G, _offset_copy(acc0))):
             assert encode_path(G_, acc_) == "scalar"
             assert torch.equal(coded_encode_acc(acc_, G_, C), acc)
-    paths = ops.path_counts()
+    paths = {k: v for k, v in ops.path_counts().items()
+             if k.startswith("coded_encode")}
     # the main path's shapes take the vector path where they are aligned
     assert all(paths[k]["vector"] > 0 and paths[k]["scalar"] > 0
                for k in paths), paths
@@ -244,6 +245,115 @@ def test_fused_kernels_match_plain_on_the_card(dtype):
         gd = coded_decode(F, W, out_dtype=torch.float32) * HYPER["scale"]
         mu = HYPER["momentum"] * MU0 + gd
         assert torch.equal(mun, mu) and torch.equal(pn, P0 - HYPER["lr"] * mu)
+
+
+# the edges of the 2D decode's vector path: n of 1 to 64 (W in registers
+# for n*m <= 16, in shared memory above), every m of the vector path, and V
+# with rows that are whole vectors (8, 64, 1000) or not (37, with n = 1 a
+# ragged tail on the vector path)
+DEC_N = (1, 3, 4, 8, 17, 64)
+DEC_M = (1, 2, 3, 4, 8)
+DEC_V = (8, 37, 64, 1000)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_paths_agree_bitwise_on_the_card(dtype):
+    """Every (n, m, V) of the edges: the aligned call (vector path where the
+    rule allows it) against the plain version, and bit for bit equal to the
+    scalar path (F one element off an aligned base), in both output types."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.coded_decode import decode_path
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(6)
+    ops.reset_launch_counts()
+    for n in DEC_N:
+        for m in DEC_M:
+            for V in DEC_V:
+                F = torch.randn(n, V, generator=g).to(dtype).cuda()
+                W = torch.randn(n, m, generator=g).cuda()
+                F1 = _offset_copy(F)
+                for out_dtype in (None, torch.float32):
+                    got = coded_decode(F, W, out_dtype=out_dtype)
+                    want = coded_decode_plain(F, W, out_dtype=out_dtype)
+                    torch.testing.assert_close(got.float(), want.float(),
+                                               rtol=tol, atol=tol)
+                    whole = n == 1 or V * F.element_size() % 16 == 0
+                    assert decode_path(F, got) == ("vector" if whole else "scalar")
+                    assert decode_path(F1, got) == "scalar"
+                    assert torch.equal(coded_decode(F1, W, out_dtype=out_dtype),
+                                       got), (n, m, V, out_dtype)
+    paths = ops.path_counts()["coded_decode_2d"]
+    assert paths["vector"] > 0 and paths["scalar"] > 0, paths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_apply_is_decode_plus_sgd_bitwise_on_the_card(dtype):
+    """p' and mu' equal coded_decode followed by the sgd_momentum
+    expressions bit for bit on both paths; Σg² is within 1e-5 of the plain
+    version's and the same over two calls; one kernel a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels.coded_decode import apply_path
+    g = torch.Generator().manual_seed(7)
+    for n, L, m in [(8, 171776, 2), (4, 1000, 1), (17, 64, 3), (64, 256, 8),
+                    (1, 37, 4), (8, 1001, 2), (5, 77, 11)]:
+        F = torch.randn(n, L, generator=g).to(dtype).cuda()
+        W = torch.randn(n, m, generator=g).cuda()
+        P0 = torch.randn(L, m, generator=g).cuda()
+        MU0 = torch.randn(L, m, generator=g).cuda()
+        gd = coded_decode(F, W, out_dtype=torch.float32) * HYPER["scale"]
+        mu = HYPER["momentum"] * MU0 + gd
+        p = P0 - HYPER["lr"] * mu
+        _, _, wss = coded_decode_apply_plain(F, W, P0, MU0, **HYPER)
+        for F_, P, MU in ((F, P0.clone(), MU0.clone()),
+                          (_offset_copy(F), P0.clone(), MU0.clone()),
+                          (F, _offset_copy(P0), _offset_copy(MU0))):
+            n0 = ops.launch_counts()["coded_decode_apply"]
+            pn, mun, ss = coded_decode_apply(F_, W, P, MU, **HYPER)
+            assert ops.launch_counts()["coded_decode_apply"] == n0 + 1
+            assert torch.equal(pn, p) and torch.equal(mun, mu), \
+                (n, L, m, apply_path(F_, P, MU))
+            torch.testing.assert_close(ss, wss, rtol=1e-5, atol=0)
+            P.copy_(P0)
+            MU.copy_(MU0)
+            assert torch.equal(coded_decode_apply(F_, W, P, MU, **HYPER)[2], ss)
+
+
+@pytest.mark.gpu
+def test_decode_apply_on_two_streams_on_the_card():
+    """Two streams launch the fused kernel at once, many times over (the
+    pipelined step's side stream beside the current one): each has a
+    counter of its own, so each call's p', mu' and Σg² equal those of the
+    same call alone on one stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = torch.Generator().manual_seed(8)
+    n, L, m = 8, 171776, 2
+    inputs = [(torch.randn(n, L, generator=g).cuda(),
+               torch.randn(n, m, generator=g).cuda(),
+               torch.randn(L, m, generator=g).cuda(),
+               torch.randn(L, m, generator=g).cuda()) for _ in range(2)]
+    want = []
+    for F, W, P0, MU0 in inputs:
+        pn, mun, ss = coded_decode_apply(F, W, P0.clone(), MU0.clone(), **HYPER)
+        want.append((pn.clone(), mun.clone(), ss.clone()))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    state = [(P0.clone(), MU0.clone()) for _, _, P0, MU0 in inputs]
+    torch.cuda.synchronize()
+    for _ in range(20):
+        got = []
+        for st, (F, W, _, _), (P, MU) in zip(streams, inputs, state):
+            with torch.cuda.stream(st):
+                P.copy_(inputs[len(got)][2])
+                MU.copy_(inputs[len(got)][3])
+                got.append(coded_decode_apply(F, W, P, MU, **HYPER))
+        torch.cuda.synchronize()
+        for (pn, mun, ss), (wp, wmu, wss) in zip(got, want):
+            assert torch.equal(pn, wp) and torch.equal(mun, wmu)
+            assert torch.equal(ss, wss)
 
 
 @pytest.mark.gpu

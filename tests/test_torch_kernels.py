@@ -240,3 +240,89 @@ def test_wrappers_reject_bad_shapes():
         coded_encode(torch.zeros(3, 8, 2), torch.zeros(2, 2))
     with pytest.raises(ValueError):
         coded_decode(torch.zeros(4, 8), torch.zeros(3, 2))
+
+
+# (F shape, dtype, F offset, out offset, m, path): the vector path needs m
+# in VEC_M, both bases 16-byte aligned and, for n > 1, every row F[i] too
+# (V*sizeof(in) a multiple of 16); a V tail stays on the vector path (the
+# kernel's own scalar loop takes it), which only n = 1 can have.  Both
+# coefficient forms (W in registers for n*m <= REG_TERMS, in shared memory
+# above) have both paths.
+DECODE_PATHS = [
+    ((8, 171776), "float32", 0, 0, 2, "vector"),     # the training bucket
+    ((8, 171776), "bfloat16", 0, 0, 2, "vector"),
+    ((4, 303872), "float32", 0, 0, 2, "vector"),     # serving
+    ((64, 1024), "float32", 0, 0, 4, "vector"),      # W in shared memory
+    ((17, 640), "bfloat16", 0, 0, 3, "vector"),
+    ((3, 36), "float32", 0, 0, 8, "vector"),
+    ((8, 171776), "float32", 1, 0, 2, "scalar"),     # F one element off
+    ((8, 171776), "bfloat16", 1, 0, 2, "scalar"),
+    ((8, 171776), "float32", 0, 1, 2, "scalar"),     # out one element off
+    ((64, 1024), "float32", 0, 3, 4, "scalar"),
+    ((8, 171776), "float32", 4, 4, 2, "vector"),     # 16 bytes off: aligned
+    ((8, 1001), "float32", 0, 0, 2, "scalar"),       # rows F[i] misaligned
+    ((8, 1002), "bfloat16", 0, 0, 2, "scalar"),
+    ((8, 1012), "bfloat16", 0, 0, 1, "scalar"),
+    ((8, 13), "float32", 0, 0, 1, "scalar"),
+    ((64, 77), "float32", 0, 0, 2, "scalar"),
+    ((8, 1004), "float32", 0, 0, 2, "vector"),
+    ((8, 1000), "bfloat16", 0, 0, 2, "vector"),
+    ((1, 1001), "float32", 0, 0, 2, "vector"),       # one row: a ragged V tail
+    ((1, 13), "bfloat16", 0, 0, 1, "vector"),
+    ((1, 3), "float32", 0, 0, 4, "vector"),          # V below one vector
+    ((3, 36), "float32", 0, 0, 5, "scalar"),         # m outside VEC_M
+    ((12, 1024), "float32", 0, 0, 19, "scalar"),
+    ((2, 64), "float32", 0, 0, 6, "scalar"),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,f_off,o_off,m,path", DECODE_PATHS)
+def test_decode_path_choice(shape, dtype, f_off, o_off, m, path):
+    from repro_torch.kernels.coded_decode import decode_path
+    F = _at(shape, dtype, f_off)
+    out = _at((shape[1], m), "float32", o_off)
+    assert decode_path(F, out) == path
+
+
+def test_decode_path_cases_cover_both_coefficient_forms():
+    from repro_torch.kernels.coded_decode import REG_TERMS
+    forms = {(s[0] * m <= REG_TERMS, path)
+             for s, _, _, _, m, path in DECODE_PATHS}
+    assert forms == {(True, "vector"), (False, "vector"), (True, "scalar"),
+                     (False, "scalar")}
+    # the training code (8, 4, 2, 2) and serving's (4, 3, 1, 2) hold W in
+    # registers
+    assert 8 * 2 <= REG_TERMS and 4 * 2 <= REG_TERMS
+
+
+# (F shape, F offset, P offset, MU offset, path) of the fused decode-apply:
+# the vector path needs it for both P and MU
+APPLY_PATHS = [
+    ((8, 171776), 0, 0, 0, "vector"),
+    ((8, 171776), 1, 0, 0, "scalar"),
+    ((8, 171776), 0, 1, 0, "scalar"),
+    ((8, 171776), 0, 0, 1, "scalar"),
+    ((8, 171776), 0, 4, 4, "vector"),
+    ((8, 1001), 0, 0, 0, "scalar"),
+    ((1, 1001), 0, 0, 0, "vector"),
+]
+
+
+@pytest.mark.parametrize("shape,f_off,p_off,mu_off,path", APPLY_PATHS)
+def test_decode_apply_path_choice(shape, f_off, p_off, mu_off, path):
+    from repro_torch.kernels.coded_decode import apply_path
+    L = shape[1]
+    assert apply_path(_at(shape, "float32", f_off), _at((L, 2), "float32", p_off),
+                      _at((L, 2), "float32", mu_off)) == path
+
+
+@pytest.mark.parametrize("L", [1, 3, 7, 255, 256, 257, 1001, 171776,
+                               303872, 4194311])
+def test_decode_apply_partials_bound_any_grid(L):
+    """The Σg² scratch has a slot for every block the kernel can launch: at
+    most one block per THREADS of its items, L on the scalar path and L / 4
+    (f32) or L / 8 (bf16) on the vector path, and never fewer than one."""
+    from repro_torch.kernels.coded_decode import THREADS, partial_slots
+    for items in (L, L // 4, L // 8):
+        assert partial_slots(L) >= max(1, -(-items // THREADS))
+    assert partial_slots(L) == -(-L // THREADS)
