@@ -57,15 +57,33 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the decoded logits against the uncoded forward of the same
            prompts, the hedge (a straggler's payload never reaches the
            output bits), and no failed requests
+  train_lm coded training of the same ``qwen3-1.7b`` at full width on
+           4096-token sequences, code (4, 3, 1, 2), one sequence a subset
+           (a global batch of 4), random stragglers: ``Trainer`` with NAG
+           over all 28 layers, 3 steps; then the pipelined ``Trainer``
+           (``fuse_apply=True``, SGD-momentum), also at full width and
+           depth, 3 steps and a drain.  Each
+           path counted from 0: flash forward twice a layer and subset (the
+           checkpoint recomputes it), its backward once, one encode a coded
+           leaf and subset, one decode (or decode-apply) a bucket; no plain
+           flash call.  Outside the counts: the decoded gradient with a
+           straggler against the uncoded one, and fill + drain against the
+           synchronous step, bitwise
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
 online-softmax loop) at the sweep of tests/test_kernels.py, at the serving
 shape, with a window and a query offset, at hd 32 and 64 with a ragged S,
 q_per_kv = 4, B > 1 with a window and an offset, and on views of one fused
-projection; check what it refuses (TMA alignment, inputs that require grad
-under grad mode); and time it beside ``scaled_dot_product_attention`` in
-the same type, against the tensor-core bounds.  The build phase reports
+projection; check what it refuses (TMA alignment) and that under grad mode it is
+differentiable; and time it beside ``scaled_dot_product_attention`` in
+the same type, against the tensor-core bounds.  They hold the flash
+backward (``csrc/flash_attn_bwd.cu``) against the plain version's autograd
+over the same sweep (f32 1e-5 in relative error norm and 1e-4 of the
+largest gradient elementwise, bf16 2e-2 in relative norm), require the
+same bits from a second call, and the forward's bits with and without its
+log-sum-exp residual; and time the backward at the 4096-token shape beside
+SDPA's backward in the same type.  The build phase reports
 the flash kernels' registers, spills and shared memory.  Float32 products
 of the plain versions run in full f32: TF32 is switched off for matmuls
 and cuDNN.
@@ -78,8 +96,10 @@ prints no result.  The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -88,6 +108,9 @@ import time
 
 HERE = pathlib.Path(__file__).resolve().parent
 
+# the LM training path allocates and frees buffers of several GB; segments
+# that grow in place keep the cache from fragmenting
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 try:
     import torch
 except ImportError:
@@ -148,6 +171,14 @@ SERVE_BATCHES = 3              # batches the serve phase submits and steps
 # products summed in other orders (one prompt a call against four), then the
 # decode's weights; held to 1e-3 of the largest logit
 SERVE_REL_TOL = 1e-3
+LM_SEQ = 4096                  # tokens a sequence on the LM training path
+LM_CODE = (4, 3, 1, 2)         # (n, d, s, m): one sequence a subset
+LM_STEPS = 3                   # steps of each LM training path
+LM_NAG_LR = 1e-3               # NAG step of the synchronous LM path
+LM_SGD_LR = 1e-3               # SGD-momentum step of the pipelined LM path
+# the decoded gradient with a straggler against the uncoded one: f32, the
+# decode's float64-solved weights applied in f32 to sums of 3 subsets
+LM_GRAD_REL_TOL = 1e-4
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 HOST_CALLS = 200               # calls of one host-cost measurement
 
@@ -564,9 +595,7 @@ def check_flash(gen):
                      (ValueError, lambda: flash_attn.flash_attention_gqa(
                          odd_stride, y, y, 1)),
                      (ValueError, lambda: flash_attn.flash_attention_gqa(
-                         y, odd_base, y, 1)),
-                     (RuntimeError, lambda: flash_attn.flash_attention_gqa(
-                         needs_grad, y, y, 1))):
+                         y, odd_base, y, 1))):
         n0 = flash_attn.LAUNCHES["flash_attention"]
         try:
             bad()
@@ -575,10 +604,95 @@ def check_flash(gen):
                 fail("flash_attention launched on an operand it refused")
             continue
         fail(f"flash_attention accepted an operand it must refuse ({exc.__name__})")
-    # forward only: under no_grad an input that requires grad is fine
+    # under no_grad an input that requires grad runs the forward alone; under
+    # grad mode the call is differentiable through the backward kernel
     with torch.no_grad():
-        flash_attn.flash_attention_gqa(needs_grad, y, y, 1)
+        if flash_attn.flash_attention_gqa(needs_grad, y, y, 1).requires_grad:
+            fail("flash_attention under no_grad returned a graph")
+    b0 = flash_attn.LAUNCHES["flash_attention_bwd"]
+    (got,) = torch.autograd.grad(
+        flash_attn.flash_attention_gqa(needs_grad, y, y, 1), needs_grad, y)
+    ref = y.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        flash_attn.flash_attention_gqa_plain(ref, y, y, 1), ref, y)
     torch.cuda.synchronize()
+    if flash_attn.LAUNCHES["flash_attention_bwd"] != b0 + 1:
+        fail("a grad-mode flash_attention did not launch its backward once")
+    _close("flash_attention grad under grad mode", got, want, 1e-4)
+    return r
+
+
+# The backward's tolerances against the plain version's autograd (TF32 off):
+# the kernel sums in f32 on the CUDA cores, in other orders than the plain
+# loop's einsums, over up to S keys; bf16 against autograd through bf16
+# products (the plain version rounds P and the products to bf16)
+FLASH_BWD_REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+FLASH_BWD_MAX_ABS_OF_MAX = 1e-4      # f32: max |err| over max |plain grad|
+
+
+def _flash_grads(fn, q, k, v, dout, g, kind, w, p0):
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves, g, mask_kind=kind, window=w, kv_pos0=p0)
+    return torch.autograd.grad(out, leaves, dout)
+
+
+def check_flash_bwd(gen):
+    """The backward kernel against the plain version's autograd on the
+    card over the forward's sweep (the 4096-token serve shape with
+    q_per_kv = 2, a window, query offsets, hd 32 and 64 with ragged S, views
+    of one fused projection), f32 and bf16: one backward launch a call; the
+    same bits on a second call (no atomics); and the forward's output with
+    the log-sum-exp residual written bitwise the output without it."""
+    r = {"max_abs_err": 0.0, "max_rel_norm_err": 0.0,
+         "max_rel_norm_err_bf16": 0.0, "cases": 0}
+    for dtype in (F32, torch.bfloat16):
+        for case in FLASH + [FLASH_FUSED]:
+            q, k, v, (kind, w, p0) = _flash_inputs(gen, case, dtype)
+            g = q.shape[2] // k.shape[2]
+            dout = _randn(gen, tuple(q.shape), dtype)
+            what = f"flash_attention_bwd{case} {dtype}"
+            out0 = flash_attn._forward(q, k, v, kind, w, p0, residual=False)[0]
+            out, lse = flash_attn._forward(q, k, v, kind, w, p0, residual=True)
+            if not torch.equal(out0, out):
+                fail(f"{what}: writing the residual changed the forward's bits")
+            n0 = flash_attn.LAUNCHES["flash_attention_bwd"]
+            p_0 = flash_attn.PLAIN_CALLS["flash_attention"]
+            got = _flash_grads(flash_attn.flash_attention_gqa, q, k, v, dout,
+                               g, kind, w, p0)
+            torch.cuda.synchronize()
+            if (flash_attn.LAUNCHES["flash_attention_bwd"] != n0 + 1
+                    or flash_attn.PLAIN_CALLS["flash_attention"] != p_0):
+                fail(f"{what}: not one backward launch, or a plain call")
+            again = flash_attn.flash_attention_bwd(
+                q, k, v, out, lse, dout, mask_kind=kind, window=w, kv_pos0=p0)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"{what}: two calls gave other bits")
+            want = _flash_grads(flash_attn.flash_attention_gqa_plain, q, k, v,
+                                dout, g, kind, w, p0)
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                if a.dtype != dtype or a.shape != b.shape:
+                    fail(f"{what} {name}: {a.dtype} {tuple(a.shape)}")
+                a, b = a.float(), b.float()
+                if not torch.isfinite(a).all():
+                    fail(f"{what} {name}: non-finite")
+                rel = ((a - b).norm() / b.norm()).item()
+                if rel > FLASH_BWD_REL_NORM[dtype]:
+                    fail(f"{what} {name}: relative error norm {rel:.3e} "
+                         f"exceeds {FLASH_BWD_REL_NORM[dtype]}")
+                if dtype == F32:
+                    err = (a - b).abs().max().item()
+                    if err > FLASH_BWD_MAX_ABS_OF_MAX * b.abs().max().item():
+                        fail(f"{what} {name}: max abs err {err:.3e} exceeds "
+                             f"{FLASH_BWD_MAX_ABS_OF_MAX} of max |plain|")
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                    r["max_rel_norm_err"] = max(r["max_rel_norm_err"], rel)
+                else:
+                    r["max_rel_norm_err_bf16"] = max(
+                        r["max_rel_norm_err_bf16"], rel)
+            r["cases"] += 1
+    r["tolerance"] = {"f32_rel_norm": 1e-5,
+                      "f32_max_abs_of_max": FLASH_BWD_MAX_ABS_OF_MAX,
+                      "bf16_rel_norm": 2e-2}
     return r
 
 
@@ -675,6 +789,8 @@ def _operands(kind, shape, m, dtype, out_dtype, gen):
     osz = torch.empty((), dtype=out_dtype).element_size()
     if kind == "flash":
         return _flash_operands(shape, dtype, gen, isz)
+    if kind == "flash_bwd":
+        return _flash_bwd_operands(shape, dtype, gen, isz)
     n_in = int(np.prod(shape))
     if kind in ("encode", "encode_acc"):
         d, V, mm = shape[:3]
@@ -744,6 +860,47 @@ def _flash_operands(shape, dtype, gen, isz):
             library, nbytes, flops)
 
 
+def _flash_bwd_operands(shape, dtype, gen, isz):
+    """The causal backward at ``(B, S, H, Hkv, hd)``: the kernels on a
+    forward's output and residual; the plain version's autograd backward
+    and ``scaled_dot_product_attention``'s backward in the same type (the
+    yardstick; the port never calls it), each on a graph built once and
+    kept.  Operations: the five products of the gradient over the pairs
+    the causal mask admits (S, dP, dV, dQ, dK), 2 hd each a pair and head;
+    bytes: q, k, v, o, dO and the residual read once, dq, dk, dv written
+    once."""
+    B, S, H, Hkv, hd = shape
+    g = H // Hkv
+
+    def make():
+        q = _randn(gen, (B, S, H, hd), dtype)
+        k = _randn(gen, (B, S, Hkv, hd), dtype)
+        v = _randn(gen, (B, S, Hkv, hd), dtype)
+        dout = _randn(gen, (B, S, H, hd), dtype)
+        out, lse = flash_attn._forward(q, k, v, "causal", 0, 0, residual=True)
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        plain = flash_attn.flash_attention_gqa_plain(*leaves, g)
+        sdpa_leaves = [x.transpose(1, 2).clone().requires_grad_()
+                       for x in (q, k, v)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention(
+            *sdpa_leaves, is_causal=True, enable_gqa=g > 1)
+        return (q, k, v, out, lse, dout, leaves, plain, sdpa_leaves, sdpa,
+                dout.transpose(1, 2))
+
+    def kernel(o):
+        return flash_attn.flash_attention_bwd(*o[:6])
+
+    def plain(o):
+        return torch.autograd.grad(o[7], o[6], o[5], retain_graph=True)
+
+    def library(o):
+        return torch.autograd.grad(o[9], o[8], o[10], retain_graph=True)
+
+    nbytes = (4 * B * S * H * hd + 4 * B * S * Hkv * hd) * isz + B * H * S * 4
+    flops = 5 * 2 * hd * B * H * S * (S + 1) // 2
+    return make, kernel, plain, library, nbytes, flops
+
+
 def _paths_since(before, prefix):
     """Launches by kernel path since the path counts ``before``, summed
     over the variants whose names start with ``prefix``."""
@@ -765,7 +922,8 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
     make, kernel, plain, library, nbytes, flops = _operands(
         kind, shape, m, dtype, out_dtype, gen)
     first = make()
-    per_copy = sum(x.numel() * x.element_size() for x in first)
+    per_copy = sum(x.numel() * x.element_size() for x in first
+                   if isinstance(x, torch.Tensor))
     copies = max(2, int(2 * L2_BYTES // per_copy) + 1)
     sets = [first] + [make() for _ in range(copies - 1)]
     # the coding kernels compute in f32 whatever the input type; the bf16
@@ -773,7 +931,7 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
     # Flash attention runs on the tensor cores: bf16 in one pass, f32 as
     # 3xTF32, three TF32 products for each one
     extra = {}
-    if kind == "flash" and dtype == F32:
+    if kind in ("flash", "flash_bwd") and dtype == F32:
         bound_ms, bound_by = _bound(nbytes, 3 * flops, TF32_FLOP_PER_S)
         extra["bound_ms_f32_cuda_cores"] = _bound(nbytes, flops)[0]
     else:
@@ -790,7 +948,7 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
     library_ms = (time_ms(lambda i: library(sets[i % copies]))
                   if library is not None else None)
     ms_warm = time_ms(lambda i: kernel(sets[0]))
-    if kind != "flash":
+    if not kind.startswith("flash"):
         # the coding kernels' launch-bound regime: a run of back-to-back
         # launches on rotating operands, and the host's cost per call
         extra["ms_per_launch_run"] = time_run_ms(lambda i: kernel(sets[i % copies]))
@@ -1404,6 +1562,245 @@ def run_serve_path(args):
     return counts, len(results)
 
 
+# ----------------------------------------------------- LM training path
+def _digest(tensors):
+    """Exact fingerprint of f32 tensors' bits: per tensor, the sum of its
+    words and their sum weighted by position (mod 8191), in int64 (equal
+    bits give equal digests; other bits almost surely do not)."""
+    out = []
+    for t in tensors:
+        words = t.detach().reshape(-1).view(torch.int32)
+        plain = weighted = 0
+        for lo in range(0, words.numel(), 1 << 24):
+            w = words[lo:lo + (1 << 24)].to(torch.int64)
+            pos = torch.arange(lo, lo + w.numel(), device=w.device) % 8191 + 1
+            plain += int(w.sum())
+            weighted += int((w * pos).sum())
+        out.append((plain, weighted))
+    return out
+
+
+def _lm_expected(tr, steps, pipelined):
+    """Launch counts ``steps`` calls of a Trainer on the LM issue: flash
+    forward twice a layer and subset (the checkpoint recomputes it), its
+    backward once, one encode a coded leaf and subset (2D for a 1-D leaf,
+    3D for the others), one 2D decode (or fused decode-apply) a bucket and
+    retired update."""
+    cfg, code = tr.cfg, tr.code
+    subsets = code.n * code.d
+    coded = [k for k, pl in tr.arts.plans.items() if pl.coded]
+    one_d = sum(1 for k in coded if tr.params[k].ndim == 1)
+    buckets = len(tr.arts.pack_plan.buckets)
+    enc = "coded_encode_acc" if pipelined else "coded_encode"
+    want = {"flash_attention": 2 * cfg.n_layers * subsets * steps,
+            "flash_attention_bwd": cfg.n_layers * subsets * steps,
+            f"{enc}_2d": one_d * subsets * steps,
+            f"{enc}_3d": (len(coded) - one_d) * subsets * steps,
+            ("coded_decode_apply" if pipelined else "coded_decode_2d"):
+                buckets * steps}
+    return _expect(**{k: v for k, v in want.items() if v})
+
+
+def _lm_scalar_leaves(tr):
+    """Coded leaves whose 3D encode operand would leave the 16-byte vector
+    path by its shape: R (the trailing elements after the grouping dim) not
+    a whole number of f32 vectors."""
+    out = []
+    for k, pl in tr.arts.plans.items():
+        if pl.coded and tr.params[k].ndim > 1:
+            shape = list(tr.params[k].shape)
+            del shape[pl.group_dim]
+            if math.prod(shape) % 4:
+                out.append(k)
+    return out
+
+
+def _lm_batches(cfg, code):
+    rng = np.random.default_rng(SEED)
+    return [{k: torch.from_numpy(v).to(DEV) for k, v in
+             make_synthetic_batch(rng, cfg, code.num_subsets, LM_SEQ).items()}
+            for _ in range(LM_STEPS)]
+
+
+def _lm_run(tr, batches, label, drain=False):
+    """The Trainer's steps over ``batches`` (and a drain), counted from 0;
+    returns the logs, counts, paths and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    flash_attn.PLAIN_CALLS["flash_attention"] = 0
+    logs = [_timed_steps(tr, b, 1)[0] for b in batches]
+    if drain:
+        t0 = time.perf_counter()
+        m = tr.drain()
+        torch.cuda.synchronize()
+        m["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        logs.append(m)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    paths = _note_paths(label, require_vector=False)
+    plain = flash_attn.PLAIN_CALLS["flash_attention"]
+    if plain:
+        fail(f"{label}: the plain flash version ran {plain} times")
+    return logs, counts, paths, torch.cuda.max_memory_allocated()
+
+
+def _lm_check_run(label, tr, logs, counts, want):
+    if tr.arts.codec.backend.name != "hopper":
+        fail(f"{label}: backend {tr.arts.codec.backend.name!r}, not the kernels")
+    if tr.arts.coded_fraction != 1.0:
+        fail(f"{label}: coded fraction {tr.arts.coded_fraction}")
+    for m in logs[-LM_STEPS:]:          # a pipeline's fill retires nothing
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            fail(f"{label}: non-finite metrics {logs}")
+    if counts != want:
+        fail(f"{label}: kernel launches {counts}, the code implies {want}")
+    bad = [k for k, v in tr.params.items() if not torch.isfinite(v).all()]
+    if bad:
+        fail(f"{label}: non-finite parameters {bad[:4]}")
+
+
+def _lm_grad_check(tr, batch):
+    """The decoded gradient with one straggler against the uncoded gradient
+    of the same batch: the mean over its sequences of each one's gradient,
+    one sequence at a time.  Returns the relative error norm."""
+    arts, code, cfg = tr.arts, tr.code, tr.cfg
+    placed = CodedBatcher(code).place(batch)
+    inp = arts.step_inputs((1,))
+    dec, _ = arts.aggregate(tr.params, placed, inp["W"], inp["mask"], inp["rho"])
+    del placed
+    loss_fn = model_api.make_loss(cfg)
+    names = list(tr.params)
+    p = {k: v.detach().requires_grad_(True) for k, v in tr.params.items()}
+    k_sub = code.num_subsets
+    num = den = 0.0
+    unc = None
+    for j in range(k_sub):
+        sub = {key: v[j:j + 1] for key, v in batch.items()}
+        g = torch.autograd.grad(loss_fn(p, sub), [p[n] for n in names])
+        if unc is None:
+            unc = [x / k_sub for x in g]
+        else:
+            for u, x in zip(unc, g):
+                u.add_(x / k_sub)
+        del g
+    for name, u in zip(names, unc):
+        num += float(torch.sum((dec[name] - u) ** 2))
+        den += float(torch.sum(u * u))
+    rel = math.sqrt(num / den)
+    if not rel <= LM_GRAD_REL_TOL:
+        fail(f"the decoded LM gradient with a straggler is {rel:.3e} from the "
+             f"uncoded one (relative norm), past {LM_GRAD_REL_TOL}")
+    return rel
+
+
+def _lm_fill_drain_check(tr, batch):
+    """Fill + drain against the synchronous step (the same SGD-momentum, the
+    pipelined Trainer's own artifacts) from the Trainer's state, bit for
+    bit: params, momentum and loss, compared through exact digests so that
+    the two results never share the card."""
+    arts = tr.arts
+    placed = CodedBatcher(tr.code).place(batch)
+    inp = arts.step_inputs((2,))
+    a = (inp["W"], inp["mask"], inp["rho"])
+    names = list(tr.params)
+    ps, ss, ms = arts.step(tr.params, tr.opt_state, placed, *a)
+    want = _digest([ps[k] for k in names] + [ss["mu"][k] for k in names])
+    want_loss = float(ms["loss"])
+    del ps, ss, ms
+    drv = PipelineDriver(arts)
+    pp, sp, mp = drv.step(tr.params, tr.opt_state, placed, *a)
+    if mp is not None:
+        fail("the LM pipeline's fill retired an update")
+    pp, sp, mp = drv.drain(pp, sp)
+    got = _digest([pp[k] for k in names] + [sp["mu"][k] for k in names])
+    if got != want or float(mp["loss"]) != want_loss:
+        fail("LM fill + drain differs from the synchronous step")
+    return True
+
+
+def run_train_lm_path(args):
+    """Coded training of qwen3-1.7b at full width on 4096-token sequences.
+
+    Synchronous: ``Trainer`` with NAG over all 28 layers, code (4, 3, 1, 2),
+    random stragglers, one sequence a subset, 3 steps, counted from 0; then,
+    outside the window, the decoded gradient with a straggler against the
+    uncoded one.  Pipelined: ``SchemeSpec(pipelined=True, fuse_apply=True)``
+    with SGD-momentum, also over 28 layers, 3 steps and a drain, counted
+    from 0; then fill + drain against the synchronous step, bitwise.
+    Weights are random from a seeded CUDA generator (the Trainer's)."""
+    full = get_config("qwen3-1.7b")
+    code = make_code(*LM_CODE)
+    batches = _lm_batches(full, code)
+    res = {}
+    for label, cfg, opt, spec in (
+            ("qwen3-1.7b Trainer.step", full, nag(LM_NAG_LR), None),
+            # the pipelined step's peak is about 8.4 P + 11 GB (P the
+            # parameters' bytes: old and new params and momentum, two
+            # wires, one subset's gradients; the activations): 79 GB of the
+            # card's 85 at full depth
+            ("qwen3-1.7b pipelined Trainer.step", full,
+             sgd_momentum(LM_SGD_LR, 0.9),
+             coding.SchemeSpec(pipelined=True, fuse_apply=True))):
+        pipelined = spec is not None
+        gc.collect()           # the last path's trainer, and any cycles
+        torch.cuda.empty_cache()
+        at_start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, code, opt, spec=spec, seed=SEED, device=DEV,
+                     straggler_source=RandomStragglers(seed=3))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        logs, counts, paths, peak = _lm_run(tr, batches, label,
+                                            drain=pipelined)
+        want = _lm_expected(tr, LM_STEPS, pipelined)
+        _lm_check_run(label, tr, logs, counts, want)
+        steps_ms = [m["wall_ms"] for m in logs[:LM_STEPS]]
+        t0 = time.perf_counter()
+        if pipelined:
+            check = {"fill_drain_equals_sync_bitwise":
+                     _lm_fill_drain_check(tr, batches[0])}
+        else:
+            check = {"decoded_vs_uncoded_grad_rel_norm":
+                     _lm_grad_check(tr, batches[0]),
+                     "tolerance": LM_GRAD_REL_TOL}
+        torch.cuda.synchronize()
+        check["seconds"] = time.perf_counter() - t0
+        check["check_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        if args.profile and not pipelined:
+            profile_steps(lambda: tr.step(batches[0]),
+                          statistics.median(steps_ms[1:]), label, steps=1)
+        n_params = sum(v.numel() for v in tr.params.values())
+        say(phase="train_lm", path=label, model=cfg.name,
+            n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+            seq_len=LM_SEQ, code=list(LM_CODE),
+            global_batch=code.num_subsets, steps=LM_STEPS,
+            optimizer="sgd_momentum" if pipelined else "nag",
+            lr=LM_SGD_LR if pipelined else LM_NAG_LR,
+            schedule="gather", packed=True, wire="float32",
+            pipelined=pipelined, fuse_apply=pipelined,
+            reduced={"global_batch": f"{code.num_subsets} sequences, not "
+                                     f"train_4k's 256",
+                     "steps": LM_STEPS, "weights": "random, seeded"},
+            build_s=build_s,
+            losses=[m["loss"] for m in logs],
+            grad_norm=[m["grad_norm"] for m in logs],
+            step_ms=[m["wall_ms"] for m in logs],
+            step_ms_median_after_first=statistics.median(steps_ms[1:]),
+            launches=counts, launches_expected=want,
+            launches_per_step={k: v / LM_STEPS for k, v in counts.items() if v},
+            launches_by_kernel_path=paths,
+            scalar_path_leaves_by_shape=_lm_scalar_leaves(tr),
+            plain_flash_calls=0, memory_at_start_bytes=at_start,
+            peak_memory_bytes=peak,
+            memory_limit_bytes=torch.cuda.get_device_properties(0).total_memory,
+            **check)
+        res[label] = counts
+        del tr, logs
+    return res
+
+
 # --------------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1432,6 +1829,7 @@ def main():
         flash_kernel_ptxas=flash_ptxas, flash_kernel_smem_bytes=flash_smem)
 
     errs = check_kernels()
+    errs["flash_attention_bwd"] = check_flash_bwd(torch.Generator().manual_seed(5))
     main_shapes = {
         "coded_encode_2d": measure("encode", (1, 171737, 2)),
         "coded_encode_3d": measure("encode", (1, 3072, 2, 2048)),
@@ -1441,11 +1839,15 @@ def main():
         "coded_encode_acc_3d": measure("encode_acc", (1, 3072, 2, 2048)),
         "coded_decode_apply": measure("decode_apply", (8, 171776), m=2),
         "flash_attention": measure("flash", (1, SERVE_SEQ, 16, 8, 128)),
+        "flash_attention_bwd": measure("flash_bwd", (1, LM_SEQ, 16, 8, 128)),
     }
     other_shapes = {
         "flash_attention": [measure("flash", (1, SERVE_SEQ, 16, 8, 128),
                                     dtype=torch.bfloat16,
                                     out_dtype=torch.bfloat16)],
+        "flash_attention_bwd": [measure("flash_bwd", (1, LM_SEQ, 16, 8, 128),
+                                        dtype=torch.bfloat16,
+                                        out_dtype=torch.bfloat16)],
         "coded_encode_2d": [measure("encode", (4, 4194304, 2)),
                             measure("encode", (1, 171737, 2), dtype=torch.bfloat16,
                                     out_dtype=torch.bfloat16)],
@@ -1465,6 +1867,8 @@ def main():
     counts = run_main_path(args)
     serve_path = "qwen3-1.7b CodedServer.step"
     counts[serve_path], n_batches = run_serve_path(args)
+    counts.update(run_train_lm_path(args))
+    lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined
     # run, the 3D variants on the MLP's matrices, flash attention on the
@@ -1473,7 +1877,8 @@ def main():
     path_of = {"coded_encode_2d": trainer_path, "coded_decode_2d": trainer_path,
                "coded_encode_3d": mlp_path, "coded_decode_3d": mlp_path,
                "coded_encode_acc_2d": pipe_path, "coded_decode_apply": pipe_path,
-               "coded_encode_acc_3d": mlp_path, "flash_attention": serve_path}
+               "coded_encode_acc_3d": mlp_path, "flash_attention": serve_path,
+               "flash_attention_bwd": lm_path}
 
     replaces = {"coded_encode_2d": "src/repro/kernels/coded_encode.py:76",
                 "coded_encode_3d": "src/repro/kernels/coded_encode.py:93",
@@ -1482,10 +1887,14 @@ def main():
                 "coded_encode_acc_2d": "src/repro/kernels/coded_encode.py:143",
                 "coded_encode_acc_3d": "src/repro/kernels/coded_encode.py:159",
                 "coded_decode_apply": "src/repro/kernels/coded_decode.py:134",
-                "flash_attention": "src/repro/kernels/flash_attn.py:99"}
+                "flash_attention": "src/repro/kernels/flash_attn.py:99",
+                # no TPU kernel: the reference differentiates its
+                # online_attention with XLA's autodiff
+                "flash_attention_bwd": "src/repro/models/common.py:154"}
     kernels = []
     for name, meas in main_shapes.items():
-        stem = ("flash_attn" if name == "flash_attention" else
+        stem = ("flash_attn_bwd" if name == "flash_attention_bwd" else
+                "flash_attn" if name == "flash_attention" else
                 "coded_encode" if name.startswith("coded_encode") else
                 "coded_decode")
         kernels.append({
@@ -1500,6 +1909,10 @@ def main():
             "dtype": meas["dtype"], "ms_l2_warm": meas["ms_l2_warm"]})
         if name == "flash_attention":
             kernels[-1]["launches_per_batch"] = kernels[-1]["launches"] / n_batches
+        if name == "flash_attention_bwd":
+            kernels[-1]["launches_per_step"] = kernels[-1]["launches"] / LM_STEPS
+            kernels[-1]["max_rel_norm_err"] = errs[name]["max_rel_norm_err"]
+        if name.startswith("flash"):
             kernels[-1]["bound_ms_f32_cuda_cores"] = meas["bound_ms_f32_cuda_cores"]
         else:
             kernels[-1].update(
@@ -1511,8 +1924,8 @@ def main():
             kernels[-1].update(
                 path_at_timed_shape=meas["path"],
                 launches_by_kernel_path=KERNEL_PATHS[path_of[name]][name])
-        if name == "flash_attention":
-            bf16 = other_shapes["flash_attention"][0]
+        if name.startswith("flash"):
+            bf16 = other_shapes[name][0]
             kernels[-1]["bf16"] = {k: bf16[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
         if kernels[-1]["launches"] == 0:

@@ -256,13 +256,21 @@ def unpack_bucket(decoded: torch.Tensor,
                   bucket: WireBucket) -> dict[int, torch.Tensor]:
     """Invert the packing on the decoded ``(bucket.size, m)`` buffer: static
     slices from the slot table, reshaped back through ``groups_to_leaf`` into
-    each leaf's original layout.  Returns {leaf_index: gradient leaf}."""
+    each leaf's original layout.  Returns {leaf_index: gradient leaf}.
+
+    Every leaf owns its memory: one that comes out as a view of the buffer
+    (a 1-D leaf, whose groups need no transpose) is copied, or it would keep
+    the whole bucket alive for as long as it lives."""
     m = decoded.shape[1]
+    base = decoded.untyped_storage().data_ptr()
     out: dict[int, torch.Tensor] = {}
     for s in bucket.slots:
         seg = decoded[s.offset:s.offset + s.size]             # (size, m)
         V, rest = s.enc_shape[0], s.enc_shape[1:]
         x = seg.reshape(V, *rest, m)
         x = torch.movedim(x, -1, 1)                           # (V, m, *rest)
-        out[s.leaf_index] = groups_to_leaf(x, s.plan)
+        leaf = groups_to_leaf(x, s.plan)
+        if leaf.untyped_storage().data_ptr() == base:
+            leaf = leaf.clone()
+        out[s.leaf_index] = leaf
     return out

@@ -6,7 +6,10 @@ import importlib
 from .base import ModelConfig
 
 _MODULES = {
+    "qwen2-72b": "qwen2_72b",
+    "qwen3-8b": "qwen3_8b",
     "qwen3-1.7b": "qwen3_1p7b",
+    "granite-34b": "granite_34b",
     "logistic-paper": "logistic_paper",
 }
 

@@ -14,6 +14,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from ._device import resolve_device
+
 
 def _flatten(tree: Mapping[str, Any], prefix: str = ""):
     for k in sorted(tree):
@@ -56,9 +58,11 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def params_from_jax(tree: Mapping[str, Any],
-                    device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
-    """Tree of numpy arrays -> flat ``{"a/b": Tensor}`` on ``device``."""
-    return {k: _tensor(v, device) for k, v in _flatten(tree)}
+                    device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Tree of numpy arrays -> flat ``{"a/b": Tensor}`` on ``device``
+    (default: the card; raises when there is none)."""
+    dev = resolve_device(device)
+    return {k: _tensor(v, dev) for k, v in _flatten(tree)}
 
 
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict:
@@ -71,9 +75,11 @@ _PARAM_SHAPED = ("x_prev", "mu", "m", "v")
 
 
 def opt_state_from_jax(state: Mapping[str, Any],
-                       device: str | torch.device = "cpu") -> dict:
+                       device: str | torch.device = "cuda") -> dict:
     """Optimizer state of the reference (NAG ``x_prev``/``lam``, SGD ``mu``,
-    AdamW ``m``/``v``/``t``) as numpy -> the port's state on ``device``."""
+    AdamW ``m``/``v``/``t``) as numpy -> the port's state on ``device``
+    (default: the card; raises when there is none)."""
+    device = resolve_device(device)
     out = {}
     for k, v in state.items():
         out[k] = (params_from_jax(v, device) if k in _PARAM_SHAPED

@@ -147,11 +147,17 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "coded_decode_apply_launch": [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32,
                                       i64, i32, f32, f32, f32, i32, i64, i32,
                                       ptr],
-        # (q, k, v, out, B, Sq, Sk, H, Hkv, hd, q/k/v strides (b, s, h),
+        # (q, k, v, out, lse, B, Sq, Sk, H, Hkv, hd, q/k/v strides (b, s, h),
         #  mask_kind, window, q_pos0, scale, dtype, stream)
-        "flash_attention_launch": [ptr, ptr, ptr, ptr, i32, i64, i64, i32, i32,
-                                   i32] + [i64] * 9 + [i32, i64, i64, f32, i32,
-                                                       ptr],
+        "flash_attention_launch": [ptr, ptr, ptr, ptr, ptr, i32, i64, i64, i32,
+                                   i32, i32] + [i64] * 9 + [i32, i64, i64, f32,
+                                                            i32, ptr],
+        # (q, k, v, out, dout, lse, dq, dk, dv, dsum, B, Sq, Sk, H, Hkv, hd,
+        #  q/k/v strides (b, s, h), mask_kind, window, q_pos0, scale, dtype,
+        #  stream)
+        "flash_attention_bwd_launch": [ptr] * 10 + [i32, i64, i64, i32, i32,
+                                                    i32] + [i64] * 9
+                                      + [i32, i64, i64, f32, i32, ptr],
         "flash_attention_smem_bytes": [i32, i32],   # (dtype, hd)
         "empty_kernel_launch": [ptr],               # (stream)
     }

@@ -215,7 +215,8 @@ __device__ __forceinline__ void mma_pv_bf16(float (&o)[HD / 2], const uint32_t (
 template <typename T, int HD>
 __global__ void __launch_bounds__(FaCfg<T, HD>::THREADS, FaCfg<T, HD>::MIN_BLOCKS)
 flash_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-             const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out, int Sq, int Sk,
+             const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
+             float* __restrict__ lse, int Sq, int Sk,
              int H, int q_per_kv, int n_qt, int mask_kind, long long window,
              long long q_pos0, float scale_log2) {
   using C = FaCfg<T, HD>;
@@ -472,6 +473,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ C
     const float denom = fmaxf(l, 1e-30f);
     const int row = q0 + row0 + 8 * v1;
     if (row >= Sq) continue;
+    // the backward's residual: the row's log-sum-exp of the base-2 scores
+    if (lse != nullptr && t4 == 0) lse[((long long)b * H + h) * Sq + row] = m_run[v1] + log2f(denom);
     T* orow = out + (((long long)b * Sq + row) * H + h) * HD;
 #pragma unroll
     for (int c = 0; c < HD / 8; ++c) {
@@ -540,7 +543,8 @@ int make_map(CUtensorMap* map, const void* ptr, bool f32, int hd, long long S, i
 }
 
 template <typename T, int HD>
-int launch_flash(const void* q, const void* k, const void* v, void* out, int B, long long Sq,
+int launch_flash(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 long long Sq,
                  long long Sk, int H, int Hkv, long long qsb, long long qss, long long qsh,
                  long long ksb, long long kss, long long ksh, long long vsb, long long vss,
                  long long vsh, int mask_kind, long long window, long long q_pos0,
@@ -557,7 +561,7 @@ int launch_flash(const void* q, const void* k, const void* v, void* out, int B, 
   const int n_qt = (int)((Sq + FA_BQ - 1) / FA_BQ);
   const dim3 grid((unsigned)(n_qt * H), (unsigned)B);
   flash_kernel<T, HD><<<grid, C::THREADS, C::SMEM, st>>>(
-      tq, tk, tv, (T*)out, (int)Sq, (int)Sk, H, H / Hkv, n_qt, mask_kind, window, q_pos0,
+      tq, tk, tv, (T*)out, lse, (int)Sq, (int)Sk, H, H / Hkv, n_qt, mask_kind, window, q_pos0,
       scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
@@ -569,10 +573,14 @@ int launch_flash(const void* q, const void* k, const void* v, void* out, int B, 
 // (B, Sq, H, hd).  All of one element type, on the current device; hd is 32,
 // 64 or 128, Hkv divides H; bases and the strides of every dimension longer
 // than 1 are multiples of 16 bytes (TMA).  Query row i sits at position
-// q_pos0 + i, key j at j.  Returns cudaGetLastError() of the launch, or a
-// negative code (CG_ERR_*, FA_ERR_*) when nothing was launched.
+// q_pos0 + i, key j at j.  lse, when not null, receives each row's
+// log-sum-exp (B, H, Sq) f32 in log2 units, m + log2 max(l, 1e-30) of the
+// base-2 scores s log2(e) (the backward's residual, flash_attn_bwd.cu);
+// null writes nothing and leaves the output's bits as they are.  Returns
+// cudaGetLastError() of the launch, or a negative code (CG_ERR_*,
+// FA_ERR_*) when nothing was launched.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* out, int B, long long Sq, long long Sk,
+                                      void* out, void* lse, int B, long long Sq, long long Sk,
                                       int H, int Hkv, int hd, long long qsb,
                                       long long qss, long long qsh, long long ksb,
                                       long long kss, long long ksh, long long vsb,
@@ -588,9 +596,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if ((Sq + FA_BQ - 1) / FA_BQ * H > 2147483647LL) return CG_ERR_SHAPE;
   cudaStream_t st = (cudaStream_t)stream;
 #define FA_CALL(T, HDV)                                                              \
-  return launch_flash<T, HDV>(q, k, v, out, B, Sq, Sk, H, Hkv, qsb, qss, qsh, ksb,   \
-                              kss, ksh, vsb, vss, vsh, mask_kind, window, q_pos0,   \
-                              scale, st)
+  return launch_flash<T, HDV>(q, k, v, out, (float*)lse, B, Sq, Sk, H, Hkv, qsb, qss, \
+                              qsh, ksb, kss, ksh, vsb, vss, vsh, mask_kind, window,   \
+                              q_pos0, scale, st)
 #define FA_HD(T)                       \
   switch (hd) {                        \
     case 32: FA_CALL(T, 32);           \

@@ -1,5 +1,5 @@
-"""Flash attention forward: wrapper of the CUDA kernel and, beside it, the
-plain PyTorch version.
+"""Flash attention, forward and backward: wrappers of the CUDA kernels and,
+beside them, the plain PyTorch version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attn.py`` (``flash_attention``,
 ``_flash_kernel``, and its layout wrapper ``flash_attention_gqa``): attention
@@ -21,13 +21,22 @@ loaded (half of the causal work), and the shared KV head ``h // q_per_kv`` is
 read in place instead of repeating K and V ``q_per_kv`` times in memory as
 the TPU wrapper does.  It takes the model layout ``(B, S, H, hd)`` through
 strides (TMA needs 16-byte aligned bases and strides), f32 or bf16, ``hd``
-in 32, 64 or 128.  It is forward only: on the card the wrapper refuses
-inputs that would need a gradient.
+in 32, 64 or 128.
+
+The gradient (``csrc/flash_attn_bwd.cu``; the TPU kernel has none, the
+reference differentiates ``online_attention`` with XLA's autodiff) is a
+``torch.autograd.Function``: under grad mode, with an input that requires
+grad, the forward kernel also writes each row's log-sum-exp, and the
+backward launches three CUDA-core kernels (``D = rowsum(dO o O)``; dK and dV
+per key tile, summed over the query heads of a KV head inside the block; dQ
+per query tile), which recompute the probabilities from that residual and
+use no atomics, so the gradient's bits repeat from call to call.  Outside
+grad mode the forward runs alone and writes no residual.
 
 The plain version is the reference's oracle, ``models/common.py``'s
 ``online_attention``: the same ordered loop over query chunks and key chunks
 (the reference's default chunks, 256 and 1024), in the reference's types.
-It stays differentiable.
+It stays differentiable: on the CPU autograd differentiates the loop.
 
 On a CUDA tensor the wrapper launches the kernel or raises; the plain version
 is taken only for a tensor that lies on the CPU.
@@ -38,6 +47,7 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _launch
 
@@ -47,8 +57,9 @@ CHUNK_Q = 256            # the reference's online_attention chunks
 CHUNK_KV = 1024
 TMA_ALIGN = 16           # bytes: TMA's alignment of bases and strides
 
-# launches of the kernel; the wrapper adds one per launch
-LAUNCHES = {"flash_attention": 0}
+# launches of the kernels; the wrappers add one per launch (the backward's
+# three kernels are one launch of its entry point)
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 # calls of the plain version, wherever they come from (a run on the card
 # reads it to show that its main path never took the plain version)
 PLAIN_CALLS = {"flash_attention": 0}
@@ -161,9 +172,10 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the plain version) and raises on what it does not take: a type other
     than f32 or bf16, mixed types, ``hd`` outside 32, 64 and 128, a last
     dimension that is not contiguous, a base or a stride that is not a
-    multiple of 16 bytes, a query row with no key in its window (the
-    reference would average all of V there), or, with grad mode on, an
-    input that requires grad (the kernel has no backward).
+    multiple of 16 bytes, or a query row with no key in its window (the
+    reference would average all of V there).  Under grad mode, when q, k or
+    v requires grad, the call is differentiable through the backward
+    kernel.
     """
     _check(q, k, v, q_per_kv, mask_kind, kv_pos0)
     if q.device.type == "cpu":
@@ -172,6 +184,15 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             kv_pos0=kv_pos0, chunk_q=chunk_q, chunk_kv=chunk_kv)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    _check_cuda(q, k, v, mask_kind, window, kv_pos0)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        # the kernels read q_per_kv from the shapes (H // Hkv)
+        return _FlashAttention.apply(q, k, v, mask_kind, window, kv_pos0)
+    return _forward(q, k, v, mask_kind, window, kv_pos0, residual=False)[0]
+
+
+def _check_cuda(q, k, v, mask_kind: str, window: int, kv_pos0: int):
+    """Raise on what the kernels do not take (see ``flash_attention_gqa``)."""
     for name, x in (("k", k), ("v", v)):
         if x.device != q.device:
             raise ValueError(f"{name}: on {x.device}, expected {q.device}")
@@ -181,15 +202,10 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"q: unsupported dtype {q.dtype}; the kernel takes "
                         f"float32 and bfloat16")
     B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk = k.shape[1]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} is not one the kernel is built for "
                          f"{HEAD_DIMS}")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError("flash_attention on the card is forward only: q, "
-                           "k or v requires grad under grad mode (run under "
-                           "torch.no_grad(), or on the CPU through the plain "
-                           "version)")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("q, k, v need unit stride along head_dim")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -202,12 +218,83 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask_kind == "window" and (window < 1 or kv_pos0 + Sq - window > Sk - 1):
         raise ValueError(f"window={window} with kv_pos0={kv_pos0}, Sq={Sq}, "
                          f"Sk={Sk} leaves a query row with no key")
+
+
+def _forward(q, k, v, mask_kind: str, window: int, kv_pos0: int, *,
+             residual: bool):
+    """Launch the forward kernel on checked operands: (out, lse), where
+    ``lse`` is the (B, H, Sq) f32 log-sum-exp of each row in log2 units
+    when ``residual`` is set, else None (the kernel writes none)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+           if residual else None)
     _launch.call("flash_attention_launch", q.device, q.data_ptr(),
-                 k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq, Sk, H, Hkv,
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr() if residual else None, B, Sq, Sk, H, Hkv,
                  hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  MASK_KINDS[mask_kind], int(window), int(kv_pos0),
                  1.0 / math.sqrt(hd), _launch.DTYPE_CODES[q.dtype])
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
 
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, mask_kind: str = "causal",
+                        window: int = 0, kv_pos0: int = 0):
+    """The backward kernels: (dq, dk, dv) of ``flash_attention_gqa`` at
+    (q, k, v), given its output ``out``, the forward's residual ``lse``
+    ((B, H, Sq) f32, log2 units) and the output's gradient ``dout``.  dq is
+    (B, Sq, H, hd) and dk, dv (B, Sk, Hkv, hd), contiguous, in q's type.
+    CUDA tensors only; ``dout`` is copied when it is not contiguous with a
+    16-byte aligned base."""
+    _check_cuda(q, k, v, mask_kind, window, kv_pos0)
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    dout = dout.to(q.dtype).contiguous()
+    if dout.data_ptr() % TMA_ALIGN:
+        dout = dout.clone()
+    for name, x, shape, dt in (("out", out, (B, Sq, H, hd), q.dtype),
+                               ("lse", lse, (B, H, Sq), torch.float32),
+                               ("dout", dout, (B, Sq, H, hd), q.dtype)):
+        if (tuple(x.shape) != shape or x.dtype != dt or x.device != q.device
+                or not x.is_contiguous() or x.data_ptr() % TMA_ALIGN):
+            raise ValueError(f"{name}: expected a contiguous, 16-byte aligned "
+                             f"{shape} {dt} on {q.device}, got "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Sk, Hkv, hd), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    dsum = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    _launch.call("flash_attention_bwd_launch", q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 dsum.data_ptr(), B, Sq, Sk, H, Hkv, hd, *q.stride()[:3],
+                 *k.stride()[:3], *v.stride()[:3], MASK_KINDS[mask_kind],
+                 int(window), int(kv_pos0), 1.0 / math.sqrt(hd),
+                 _launch.DTYPE_CODES[q.dtype])
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel with its residual, differentiated by the backward
+    kernels (once: the backward itself is not differentiable)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask_kind, window, kv_pos0):
+        out, lse = _forward(q, k, v, mask_kind, window, kv_pos0,
+                            residual=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (mask_kind, window, kv_pos0)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        mask_kind, window, kv_pos0 = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         mask_kind=mask_kind, window=window,
+                                         kv_pos0=kv_pos0)
+        return dq, dk, dv, None, None, None

@@ -3,7 +3,7 @@
 
 - ``init(cfg, device, generator)``: the parameter dict on ``device``.
 - ``make_loss(cfg)``: ``fn(params, batch) -> scalar``; ``batch`` is always a
-  dict (x/y for linear).  The dense family's loss is not ported yet.
+  dict (x/y for linear, tokens/labels for dense).
 - ``make_prefill(cfg, cache_len, window)``: ``fn(params, batch) ->
   (last-token logits, cache)`` for the LM families.
 - ``make_forward(cfg, window)``: ``fn(params, batch) -> per-request output``,
@@ -34,7 +34,9 @@ def get_module(cfg):
 def init(cfg, device: str | torch.device = "cuda",
          generator: torch.Generator | None = None):
     """Initial parameters on ``device`` (default: the card; raises when
-    there is none).  ``generator`` seeds families with random init."""
+    there is none).  ``generator`` seeds families with random init; on the
+    ``meta`` device the parameters have their shapes and types and nothing
+    is drawn or allocated."""
     return get_module(cfg).init(cfg, resolve_device(device), generator)
 
 

@@ -1,6 +1,6 @@
 """Shared model components of the dense LM: norms, RoPE, GQA attention (the
 materialized softmax for short sequences, the online softmax for long ones),
-SwiGLU MLP, and the prefill cache layout.
+SwiGLU MLP, the prefill cache layout, and the cross-entropy loss.
 
 Conventions, as in the reference (``repro/models/common.py``):
 
@@ -73,7 +73,10 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
 def dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
                device) -> torch.Tensor:
     """Normal draws scaled by ``1/sqrt(in_axis_size)``, made on the
-    generator's device and moved to ``device``."""
+    generator's device and moved to ``device``.  On the ``meta`` device only
+    the shape and type are made: no draw, no memory."""
+    if torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.randn(tuple(shape), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return (x * (1.0 / np.sqrt(in_axis_size))).to(device=device, dtype=dtype)
@@ -261,16 +264,34 @@ def unembed(x: torch.Tensor, emb_out: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, emb_out.to(x.dtype))
 
 
-def layer(stacked: dict, prefix: str, i: int) -> dict:
-    """Layer ``i`` of the stacked leaves under ``prefix``, as a nested dict
-    keyed like the reference's per-layer params (``{"attn": {"wq": ...}}``)."""
-    out: dict = {}
+def layer_list(stacked: dict, prefix: str, n: int) -> list[dict]:
+    """The ``n`` layers of the stacked leaves under ``prefix``, each a
+    nested dict keyed like the reference's per-layer params (``{"attn":
+    {"wq": ...}}``), from one ``unbind`` a leaf: under autograd the layers'
+    gradients are stacked once, where a select a layer would give each
+    layer a zero-filled gradient the size of the whole stack."""
+    out: list[dict] = [{} for _ in range(n)]
     for key, v in stacked.items():
         if not key.startswith(prefix):
             continue
-        node = out
         *parents, last = key[len(prefix):].split("/")
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[last] = v[i]
+        for node, vi in zip(out, torch.unbind(v)):
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[last] = vi
     return out
+
+
+# ------------------------------------------------------------------ loss
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy in float32.  logits: (..., V); with a
+    ``mask`` the mean over its weight (at least 1)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -1,10 +1,12 @@
 """Dense decoder-only transformer LM (llama/qwen family): GQA + SwiGLU, a
-Python loop over the stacked layers, and the full-prompt prefill that coded
-serving runs.  KV-cache decoding (``decode_step``, ``cache_spec`` /
-``init_cache``) and the training loss are not ported yet."""
+Python loop over the stacked layers, the training loss with each layer
+recomputed in the backward (the reference's remat'd scan), and the
+full-prompt prefill that coded serving runs.  KV-cache decoding
+(``decode_step``, ``cache_spec`` / ``init_cache``) is not ported yet."""
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..convert import flatten
 from . import common as cm
@@ -47,16 +49,32 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(S, device=tokens.device)[None].expand(B, S)
 
 
-def forward(params: dict, cfg, tokens: torch.Tensor, *,
-            window: int = 0) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V)."""
+def forward(params: dict, cfg, tokens: torch.Tensor, *, window: int = 0,
+            remat: bool = False) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V).
+
+    ``remat``: run each layer under ``torch.utils.checkpoint`` (the
+    reference scans its layers under ``jax.remat``): autograd keeps only
+    the layers' inputs, and the backward recomputes one layer at a time
+    (the same operations on the same inputs, so the same bits)."""
     x = cm.embed_tokens(params["embed"], tokens, cm.cdtype(cfg))
     pos = _positions(tokens)
     mk = "window" if window else "causal"
-    for i in range(cfg.n_layers):
-        x = _block(x, cm.layer(params, "layers/", i), cfg, pos, mk, window)
+    for lp in cm.layer_list(params, "layers/", cfg.n_layers):
+        if remat:
+            x = checkpoint(_block, x, lp, cfg, pos, mk, window,
+                           use_reentrant=False)
+        else:
+            x = _block(x, lp, cfg, pos, mk, window)
     x = cm.rms_norm(x, params["ln_f"])
     return cm.unembed(x, params["unembed"])
+
+
+def loss(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """batch: {"tokens": (B, S), "labels": (B, S)} -> mean xent (f32), each
+    layer recomputed in the backward."""
+    logits = forward(params, cfg, batch["tokens"], remat=True)
+    return cm.softmax_xent(logits, batch["labels"])
 
 
 # ---------------------------------------------------------------- serving
@@ -67,8 +85,7 @@ def _run_prompt(params: dict, cfg, tokens: torch.Tensor, window: int,
     x = cm.embed_tokens(params["embed"], tokens, cm.cdtype(cfg))
     pos = _positions(tokens)
     mk = "window" if window else "causal"
-    for i in range(cfg.n_layers):
-        lp = cm.layer(params, "layers/", i)
+    for lp in cm.layer_list(params, "layers/", cfg.n_layers):
         y, k, v = cm.self_attention_with_kv(
             lp["attn"], cfg, cm.rms_norm(x, lp["ln1"]), pos, mask_kind=mk,
             window=window)

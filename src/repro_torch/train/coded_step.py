@@ -16,7 +16,8 @@ them in a Python loop where the reference runs a ``shard_map``:
   3. multiply by the responder mask (stragglers transmit nothing; proves
      the decode is independent of straggler payloads),
   4. pack the coded encodings into the static ``PackPlan``'s bucketed flat
-     wire buffers (default; ``packed=False`` keeps the per-leaf escape
+     wire buffers, each worker straight into its row of one ``(n, L)``
+     buffer per bucket (default; ``packed=False`` keeps the per-leaf escape
      hatch) and decode the summed gradient with the host-computed float64
      weights W (zero rows at stragglers) via the gather or a2a schedule —
      one collective choreography + one contraction per bucket.  Every
@@ -202,7 +203,11 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
         return lval.detach(), [x.to(f32) for x in g]
 
     def _scaled_with_norm(grads):
-        grads = {k: g_ * grad_scale for k, g_ in grads.items()}
+        # in place: every leaf is a buffer of this step's own (a decoded,
+        # unpacked or summed gradient), and a second copy of a full model's
+        # gradient would raise the step's peak memory by as much
+        for g_ in grads.values():
+            g_.mul_(grad_scale)
         return grads, torch.sqrt(sum(torch.sum(g_ * g_)
                                      for g_ in grads.values()))
 
@@ -223,6 +228,10 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
     def aggregate(params, batch, W, mask, rho, err_factor=None):
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         worker_enc, loss_rows, gss_rows = [], [], []
+        # packed: each worker's coded encodings are packed into its row of
+        # the (n, L) bucket buffers and dropped, so no more than one
+        # worker's encodings and one copy of the wire are alive at once
+        bufs = codec.wire_rows(pplan) if pplan is not None else None
         for i in range(n):
             enc = [codec.encoding_zero(params[k], pl)
                    for k, pl in zip(names, flat_plans)]
@@ -241,9 +250,22 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
                     # subsets — the certificate's gradient-norm term
                     gss = sum(torch.sum(torch.square(x)) for x in g)
                     gss_acc = gss_acc + rj * gss
+                # one subset's gradients alive at a time: these would
+                # otherwise live on through the next subset's backward
+                del g, gleaf, contrib
             # stragglers transmit nothing — zero the payload
-            worker_enc.append([codec.to_wire(e, mask[i]) if pl.coded else e
-                               for e, pl in zip(enc, flat_plans)])
+            if bufs is not None:
+                wire = [codec.to_wire(e, mask[i]) if pl.coded else None
+                        for e, pl in zip(enc, flat_plans)]
+                for buf, row in zip(bufs, codec.pack(wire, pplan)):
+                    buf[i] = row
+                del wire
+                worker_enc.append([None if pl.coded else e
+                                   for e, pl in zip(enc, flat_plans)])
+            else:
+                worker_enc.append([codec.to_wire(e, mask[i]) if pl.coded
+                                   else e for e, pl in zip(enc, flat_plans)])
+            del enc
             loss_rows.append(loss_acc)
             gss_rows.append(gss_acc)
 
@@ -253,16 +275,19 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
         flat_grads: list = [None] * len(names)
         if pplan is not None:
             # packed path: coded leaves ride the plan's flat buckets (one
-            # collective + one (n, L) contraction each); the psum-fallback
-            # leaves are summed through a single concatenated all-reduce
-            bufs = [torch.stack(rows) for rows in
-                    zip(*(codec.pack(we, pplan) for we in worker_enc))]
-            decs = [codec.decode_packed(b, W, comm) for b in bufs]
+            # collective + one (n, L) contraction each; a bucket's wire is
+            # dropped once decoded, the decoded buffers once unpacked); the
+            # psum-fallback leaves are summed through a single concatenated
+            # all-reduce
+            decs = []
+            while bufs:
+                decs.append(codec.decode_packed(bufs.pop(0), W, comm))
             small = [None if pl.coded else stacked(t)
                      for t, pl in enumerate(flat_plans)]
-            for t, g_ in (codec.unpack(decs, pplan)
-                          | coding.psum_fallback(small, flat_plans,
-                                                 comm)).items():
+            unpacked = codec.unpack(decs, pplan)
+            del decs
+            for t, g_ in (unpacked | coding.psum_fallback(small, flat_plans,
+                                                          comm)).items():
                 flat_grads[t] = g_
         else:
             for t, pl in enumerate(flat_plans):
@@ -284,6 +309,7 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
                 rj = rho[i, j]
                 acc = [a + rj * g_ for a, g_ in zip(acc, g)]
                 loss_acc = loss_acc + rj * lval
+                del g              # one subset's gradients alive at a time
             worker_acc.append(acc)
             loss_rows.append(loss_acc)
         grads = {k: comm.psum(torch.stack([wa[t] for wa in worker_acc]))
@@ -322,9 +348,15 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
             leaves."""
             p = {k: v.detach().requires_grad_(True)
                  for k, v in params.items()}
-            wire_rows, small_rows, loss_rows = [], [], []
+            small_rows, loss_rows = [], []
+            # each worker's wire is its row of one (n, L) buffer per bucket:
+            # an f32 wire is folded into in place, another type is folded
+            # into an f32 accumulator and cast into the row
+            wires = codec.wire_rows(pplan)
+            in_place = codec.wire_dtype == f32
             for i in range(n):
-                accs = codec.bucket_acc_zeros(pplan)
+                accs = ([w[i] for w in wires] if in_place
+                        else codec.bucket_acc_zeros(pplan))
                 smalls = [torch.zeros(sh, dtype=f32, device=dev)
                           for sh in small_shapes]
                 loss_acc = _zero()
@@ -337,16 +369,22 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
                     smalls = [sm + rj * g[t]
                               for sm, t in zip(smalls, small_ix)]
                     loss_acc = loss_acc + rj * lval
-                # stragglers transmit nothing: zero the payload
-                wire_rows.append([codec.to_wire(a, mask[i]) for a in accs])
+                    del g          # one subset's gradients alive at a time
+                # stragglers transmit nothing: zero the payload (in place,
+                # the same product as to_wire's)
+                for w, a in zip(wires, accs):
+                    if in_place:
+                        a.mul_(mask[i])
+                    else:
+                        w[i] = codec.to_wire(a, mask[i])
+                del accs
                 small_rows.append(smalls)
                 loss_rows.append(loss_acc)
-            wires = tuple(torch.stack(rows) for rows in zip(*wire_rows))
             cols = [torch.stack([r[q] for r in small_rows]).reshape(n, -1)
                     for q in range(len(small_ix))]
             loss_col = (torch.stack(loss_rows) * mask)[:, None]
             side = torch.cat(cols + [loss_col], dim=1)
-            return wires + (side,)
+            return (*wires, side)
 
         def _decode_update(params, opt_state, W, wires, side):
             """Decode the in-flight wire and side buffers and apply the
@@ -386,8 +424,13 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
                 p_bufs.append(pn)
                 mu_bufs.append(mun)
                 ss_parts.append(ss)
+            # each packed buffer is dropped once unpacked, before the next
+            # is unpacked: one full copy of the model fewer at the peak
+            del pn, mun, pb, mb
             new_p = codec.unpack_params(p_bufs, pplan, flat_p)
+            del p_bufs
             new_mu = codec.unpack_params(mu_bufs, pplan, flat_mu)
+            del mu_bufs
             # the small leaves ride the plain optimizer update
             small = [names[t] for t in small_ix]
             sgrads = {names[t]: small_grads[t] * grad_scale

@@ -77,7 +77,9 @@ class Trainer:
                                           spec=self.spec, device=self.device,
                                           comm=comm)
         self.batcher = CodedBatcher(code)
-        gen = torch.Generator().manual_seed(seed)
+        # drawn where the parameters live: a full-width model is made on
+        # the card without a pass through the host
+        gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = model_api.init(cfg, self.device, gen)
         self.opt_state = optimizer.init(self.params)
         self._step_count = 0

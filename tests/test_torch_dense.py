@@ -32,7 +32,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 def model():
     cfg = jconfigs.get_config("qwen3-1.7b").reduced()
     jp = jdense.init(jax.random.PRNGKey(0), cfg)
-    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp))
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return cfg, jp, tp
 
 
@@ -147,8 +147,11 @@ def test_common_pieces_match_reference():
     assert np.array_equal(tcm.rope_freqs(16, 1e6), jcm.rope_freqs(16, 1e6))
 
 
-def test_dense_loss_is_not_ported_yet(model):
-    cfg, _, _ = model
-    with pytest.raises(NotImplementedError, match="loss"):
-        tapi.make_loss(cfg)
-    assert japi.make_loss(cfg) is not None
+def test_make_loss_works_for_dense(model):
+    cfg, jp, tp = model
+    toks = _tokens(4, 2, 24, cfg.vocab)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    got = tapi.make_loss(cfg)(tp, {k: torch.from_numpy(v)
+                                   for k, v in batch.items()})
+    want = japi.make_loss(cfg)(jp, jax.tree.map(jnp.asarray, batch))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)

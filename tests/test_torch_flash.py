@@ -1,7 +1,9 @@
 """The port's flash attention on the CPU (its plain version, the reference's
 ``online_attention`` loop) against the reference's Pallas ``flash_attention``
 in interpret mode and against the reference's ``online_attention``, on the
-shape / mask / type sweep of ``tests/test_kernels.py`` at its tolerances."""
+shape / mask / type sweep of ``tests/test_kernels.py`` at its tolerances;
+and its autograd against ``jax.grad`` of ``online_attention``."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -152,3 +154,36 @@ def test_plain_version_stays_differentiable_on_the_cpu(kind, w):
     (want * cot).sum().backward()
     for a, b in zip(leaves, twins):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("S,H,Hkv,kind,w,p0", [
+    (2304, 4, 2, "causal", 0, 0), (320, 4, 1, "window", 96, 0),
+    (200, 4, 2, "causal", 0, 56)])
+def test_plain_flash_grad_matches_reference_online_attention(S, H, Hkv, kind,
+                                                             w, p0):
+    """The plain version's autograd (the CPU's gradient; the card's backward
+    kernel is held to it) against ``jax.grad`` of the reference's
+    ``online_attention``, at S = 2304 (the LM's online branch) and with a
+    window and a query offset: rtol 1e-4 plus 1e-5 of the largest element
+    (f32 both sides, summed in other orders)."""
+    rng = np.random.default_rng([S, H, p0])
+    hd = 32
+    q = rng.standard_normal((1, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((1, S + p0, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((1, S + p0, Hkv, hd)).astype(np.float32)
+    dout = rng.standard_normal((1, S, H, hd)).astype(np.float32)
+    kw = dict(mask_kind=kind, window=w, kv_pos0=p0)
+
+    def jfn(q, k, v):
+        return jnp.sum(jcm.online_attention(q, k, v, H // Hkv, **kw)
+                       * jnp.asarray(dout))
+    want = jax.grad(jfn, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                            jnp.asarray(v))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    out = tflash.flash_attention_gqa(*leaves, H // Hkv, **kw)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(b).max()),
+                                   err_msg=name)

@@ -512,19 +512,19 @@ def test_flash_kernel_matches_plain_on_the_card(dtype):
 
 @pytest.mark.gpu
 def test_flash_kernel_refuses_what_it_cannot_take_on_the_card():
-    """Forward only: under grad mode an input that requires grad is refused
-    (no silent drop out of autograd), under no_grad it runs; TMA's 16-byte
-    alignment of strides and bases is refused, never copied round; views
-    of one fused projection are read in place."""
+    """TMA's 16-byte alignment of strides and bases is refused, never
+    copied round; under grad mode an input that requires grad goes through
+    the backward kernel (its gradient matches the plain version's
+    autograd), under no_grad the forward runs alone; views of one fused
+    projection are read in place."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from repro_torch.kernels import flash_attn
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(1)
     x = torch.randn(1, 64, 2, 64, generator=g).cuda()
     needs_grad = x.clone().requires_grad_()
     n0 = flash_attn.LAUNCHES["flash_attention"]
-    with pytest.raises(RuntimeError, match="forward only"):
-        flash_attn.flash_attention_gqa(needs_grad, x, x, 1)
     with pytest.raises(ValueError, match="stride"):
         flash_attn.flash_attention_gqa(
             torch.zeros(1, 64, 2, 66, device="cuda")[..., :64], x, x, 1)
@@ -536,11 +536,144 @@ def test_flash_kernel_refuses_what_it_cannot_take_on_the_card():
     with torch.no_grad():
         out = flash_attn.flash_attention_gqa(needs_grad, x, x, 1)
     assert not out.requires_grad
+    b0 = flash_attn.LAUNCHES["flash_attention_bwd"]
+    out = flash_attn.flash_attention_gqa(needs_grad, x, x, 1)
+    (gq,) = torch.autograd.grad(out, needs_grad, x)
+    assert flash_attn.LAUNCHES["flash_attention_bwd"] == b0 + 1
+    ref = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(
+        flash_attn.flash_attention_gqa_plain(ref, x, x, 1), ref, x)
+    torch.testing.assert_close(gq, want, rtol=1e-4, atol=1e-4)
     qkv = torch.randn(2, 128, 8 + 2 * 2, 128, generator=g).cuda()
     q, k, v = qkv[:, :, :8], qkv[:, :, 8:10], qkv[:, :, 10:]
     got = flash_attn.flash_attention_gqa(q, k, v, 4)
     want = flash_attn.flash_attention_gqa_plain(q, k, v, 4)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+# the sweep above, then the backward's own edges: a key tile past every
+# query (query offset 0, keys > queries), a window whose key tiles begin
+# mid-sequence, hd 32 and 64 with ragged S
+FLASH_BWD_SWEEP = FLASH_SWEEP + [
+    (1, 200, 4, 2, 64, "causal", 0, 0),
+    (1, 300, 4, 2, 128, "window", 70, 0),
+    (2, 130, 4, 4, 32, "full", 0, 0),
+]
+FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # relative norm
+
+
+def flash_grads(fn, q, k, v, dout, **kw):
+    """(out, dq, dk, dv) of ``fn`` at fresh leaves with q, k, v's values."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    out = fn(*leaves, q.shape[2] // k.shape[2], **kw)
+    return (out, *torch.autograd.grad(out, leaves, dout))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_plain_autograd_on_the_card(dtype):
+    """The backward kernel's dq, dk, dv against the plain version's autograd
+    on the card (TF32 off): f32 within 1e-5 in relative error norm and
+    1e-4 of the largest plain gradient elementwise, bf16 within 2e-2 in
+    relative norm; one backward launch a call, no plain call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(2)
+    for B, Sq, H, Hkv, hd, kind, w, p0 in FLASH_BWD_SWEEP:
+        q = torch.randn(B, Sq, H, hd, generator=g).to(dtype).cuda()
+        k = torch.randn(B, Sq + p0, Hkv, hd, generator=g).to(dtype).cuda()
+        v = torch.randn(B, Sq + p0, Hkv, hd, generator=g).to(dtype).cuda()
+        dout = torch.randn(B, Sq, H, hd, generator=g).to(dtype).cuda()
+        kw = dict(mask_kind=kind, window=w, kv_pos0=p0)
+        n0 = flash_attn.LAUNCHES["flash_attention_bwd"]
+        plain0 = flash_attn.PLAIN_CALLS["flash_attention"]
+        got = flash_grads(flash_attn.flash_attention_gqa, q, k, v, dout, **kw)
+        assert flash_attn.LAUNCHES["flash_attention_bwd"] == n0 + 1
+        assert flash_attn.PLAIN_CALLS["flash_attention"] == plain0
+        want = flash_grads(flash_attn.flash_attention_gqa_plain, q, k, v,
+                           dout, **kw)
+        for name, a, b in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+            assert a.dtype == dtype and a.shape == b.shape
+            a, b = a.float(), b.float()
+            rel = ((a - b).norm() / b.norm()).item()
+            assert rel <= FLASH_BWD_TOL[dtype], (name, B, Sq, kind, rel)
+            if dtype == torch.float32:
+                assert (a - b).abs().max() <= 1e-4 * b.abs().max(), name
+
+
+@pytest.mark.gpu
+def test_flash_backward_repeats_its_bits_and_lse_leaves_forward_alone():
+    """Two backward calls on the same inputs give the same bits (no
+    atomics), and the forward's output with the residual written is the
+    output without it, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.kernels import flash_attn
+    g = torch.Generator().manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, Sq, H, Hkv, hd, kind, w, p0 in FLASH_BWD_SWEEP:
+            q = torch.randn(B, Sq, H, hd, generator=g).to(dtype).cuda()
+            k = torch.randn(B, Sq + p0, Hkv, hd, generator=g).to(dtype).cuda()
+            v = torch.randn(B, Sq + p0, Hkv, hd, generator=g).to(dtype).cuda()
+            dout = torch.randn(B, Sq, H, hd, generator=g).to(dtype).cuda()
+            a = flash_attn._forward(q, k, v, kind, w, p0, residual=False)[0]
+            b, lse = flash_attn._forward(q, k, v, kind, w, p0, residual=True)
+            assert torch.equal(a, b)
+            assert torch.isfinite(lse).all()
+            one = flash_attn.flash_attention_bwd(q, k, v, b, lse, dout,
+                                                 mask_kind=kind, window=w,
+                                                 kv_pos0=p0)
+            two = flash_attn.flash_attention_bwd(q, k, v, b, lse, dout,
+                                                 mask_kind=kind, window=w,
+                                                 kv_pos0=p0)
+            for x, y in zip(one, two):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_reduced_lm_coded_step_on_the_card_matches_the_cpu():
+    """Reduced qwen3-1.7b at S = 2304 (the online-softmax branch, so the
+    flash kernels forward and backward) through one synchronous coded NAG
+    step, code (4, 3, 1, 2) with one straggler: the card's params, loss and
+    grad_norm against the same step on the CPU (plain versions)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_code
+    from repro_torch.data import CodedBatcher, make_synthetic_batch
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import api
+    from repro_torch.optim import nag
+    from repro_torch.train import make_coded_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-1.7b").reduced()
+    code = make_code(4, 3, 1, 2)
+    batch = make_synthetic_batch(np.random.default_rng(0), cfg, 4, 2304)
+    params = api.init(cfg, "cpu", torch.Generator().manual_seed(0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        arts = make_coded_train_step(cfg, code, nag(1e-2), device=dev)
+        p = {k: v.to(dev) for k, v in params.items()}
+        placed = CodedBatcher(code).place(
+            {k: torch.as_tensor(v).to(dev) for k, v in batch.items()})
+        inp = arts.step_inputs((1,))
+        n0 = flash_attn.LAUNCHES["flash_attention_bwd"]
+        newp, _, m = arts.step(p, nag(1e-2).init(p), placed, inp["W"],
+                               inp["mask"], inp["rho"])
+        out[dev] = ({k: v.cpu() for k, v in newp.items()},
+                    {k: float(v) for k, v in m.items()})
+        if dev == "cuda":
+            bwd = flash_attn.LAUNCHES["flash_attention_bwd"] - n0
+            assert bwd == code.n * code.d * cfg.n_layers
+    (pc, mc), (pg, mg) = out["cpu"], out["cuda"]
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-5 * abs(mc["loss"])
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
+    for k in pc:
+        torch.testing.assert_close(pg[k], pc[k], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.gpu

@@ -98,7 +98,8 @@ def test_kernel_build_needs_nvcc_and_says_so(monkeypatch, tmp_path):
     from repro_torch.kernels import _build
     assert [p.name for p in _build.sources()] == ["coded_decode.cu",
                                                   "coded_encode.cu",
-                                                  "flash_attn.cu"]
+                                                  "flash_attn.cu",
+                                                  "flash_attn_bwd.cu"]
     assert _build.build_dir() == SRC.parent / "build" / "repro_torch_kernels"
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

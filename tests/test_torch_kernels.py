@@ -176,7 +176,7 @@ def test_ops_modes_and_launch_counts():
     assert set(ops.launch_counts()) == {
         "coded_encode_2d", "coded_encode_3d", "coded_encode_acc_2d",
         "coded_encode_acc_3d", "coded_decode_2d", "coded_decode_3d",
-        "coded_decode_apply", "flash_attention"}
+        "coded_decode_apply", "flash_attention", "flash_attention_bwd"}
     assert all(v == 0 for v in ops.launch_counts().values())
 
 

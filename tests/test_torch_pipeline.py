@@ -141,7 +141,7 @@ def test_fused_ops_modes_and_refusals():
     assert set(ops.launch_counts()) == {
         "coded_encode_2d", "coded_encode_3d", "coded_encode_acc_2d",
         "coded_encode_acc_3d", "coded_decode_2d", "coded_decode_3d",
-        "coded_decode_apply", "flash_attention"}
+        "coded_decode_apply", "flash_attention", "flash_attention_bwd"}
     assert all(v == 0 for v in ops.launch_counts().values())
     with pytest.raises(TypeError, match="float32"):
         coded_encode_acc(acc.to(torch.bfloat16), G, C)
@@ -203,7 +203,7 @@ def _port_run(schedule, opt_name, fuse, raw, backend="auto"):
         spec=tc.SchemeSpec(schedule=schedule, backend=backend, pipelined=True,
                            fuse_apply=fuse))
     batcher = tdata.CodedBatcher(code)
-    params = convert.params_from_jax({"beta": _beta()})
+    params = convert.params_from_jax({"beta": _beta()}, device="cpu")
     state = opt.init(params)
     drv = PipelineDriver(arts)
     metrics = []
@@ -245,7 +245,7 @@ def test_pipeline_trajectory_matches_reference(schedule, opt_name, fuse,
 
 def test_opt_state_with_nonzero_momentum_roundtrips():
     mu = {"beta": _beta(), "w": {"a": np.arange(6, dtype=np.float32)}}
-    state = convert.opt_state_from_jax({"mu": mu})
+    state = convert.opt_state_from_jax({"mu": mu}, device="cpu")
     assert list(state["mu"]) == ["beta", "w/a"]
     back = convert.opt_state_to_numpy(state)
     assert np.array_equal(back["mu"]["beta"], mu["beta"])
@@ -287,7 +287,7 @@ def _assert_trees_equal(a, b):
 def test_fill_drain_equals_sync_bitwise(schedule, opt_name, fuse):
     code, opt, sync, pipe = _port_step_pair(schedule, opt_name, fuse)
     assert pipe.pipelined and pipe.fuse_apply == fuse
-    ps = pp = convert.params_from_jax({"beta": _beta()})
+    ps = pp = convert.params_from_jax({"beta": _beta()}, device="cpu")
     ss = sp = opt.init(ps)
     drv = PipelineDriver(pipe)
     for b, st in zip(_placed(code, _raw_batches(seed=2)), PATTERNS):
@@ -315,7 +315,7 @@ def test_steady_retires_the_previous_batch_exactly(fuse):
     of b0; its encode half belongs to b1."""
     code, opt, sync, pipe = _port_step_pair(fuse=fuse)
     b0, b1 = _placed(code, _raw_batches(count=2, seed=3))
-    params = convert.params_from_jax({"beta": _beta()})
+    params = convert.params_from_jax({"beta": _beta()}, device="cpu")
     state = opt.init(params)
     inp0, inp1 = sync.step_inputs([1]), sync.step_inputs([])
     wire = pipe.pipeline.fill(params, b0, inp0["mask"], inp0["rho"])
@@ -397,7 +397,7 @@ def test_driver_drains_on_a_batch_shape_change():
     _, tcfg = _cfgs()
     big = tdata.make_synthetic_batch(np.random.default_rng(9), tcfg, 32)
     b_small, b_big = _placed(code, [small, big])
-    params = convert.params_from_jax({"beta": _beta()})
+    params = convert.params_from_jax({"beta": _beta()}, device="cpu")
     state = opt.init(params)
     inp = sync.step_inputs([1])
     a = (inp["W"], inp["mask"], inp["rho"])

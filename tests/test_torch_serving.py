@@ -43,7 +43,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 def _model():
     cfg = jget_config("qwen3-1.7b").reduced()
     jp = jdense.init(jax.random.PRNGKey(0), cfg)
-    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp))
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
     return cfg, jp, tp
 
 

@@ -75,9 +75,9 @@ def _pair(opt, schedule, stragglers, code=(N, D_, S_, M_), partial=False,
         np.float32)
     jt.params = {"beta": jnp.asarray(beta)}
     jt.opt_state = jt.optimizer.init(jt.params)
-    tt.params = convert.params_from_jax({"beta": beta})
+    tt.params = convert.params_from_jax({"beta": beta}, device="cpu")
     tt.opt_state = convert.opt_state_from_jax(
-        jax.tree.map(np.asarray, jt.opt_state))
+        jax.tree.map(np.asarray, jt.opt_state), device="cpu")
     return jt, tt
 
 
@@ -165,7 +165,7 @@ def _port_params_after(schedule, packed, wire, stragglers=(1,), steps=3):
                            encode_dtype=wire))
     params = convert.params_from_jax(
         {"beta": (0.1 * np.random.default_rng(11).standard_normal(64))
-         .astype(np.float32)})
+         .astype(np.float32)}, device="cpu")
     state = opt.init(params)
     inp = arts.step_inputs(stragglers)
     batcher = tdata.CodedBatcher(code)
@@ -308,7 +308,7 @@ def test_batcher_places_numpy_and_tensors_alike():
 def test_convert_roundtrips():
     tree = {"b": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
             "a": np.ones(4, np.float32)}
-    flat = convert.params_from_jax(tree)
+    flat = convert.params_from_jax(tree, device="cpu")
     assert list(flat) == ["a", "b/w"]
     back = convert.params_to_numpy(flat)
     assert np.array_equal(back["b"]["w"], tree["b"]["w"])
@@ -316,9 +316,10 @@ def test_convert_roundtrips():
     for name in ("nag", "sgd", "adamw"):
         js = jax.tree.map(np.asarray,
                           joptim.get_optimizer(name, 0.1).init(params))
-        ts = convert.opt_state_from_jax(js)
+        ts = convert.opt_state_from_jax(js, device="cpu")
         mine = toptim.get_optimizer(name, 0.1).init(
-            convert.params_from_jax(jax.tree.map(np.asarray, params)))
+            convert.params_from_jax(jax.tree.map(np.asarray, params),
+                                    device="cpu"))
         assert set(ts) == set(mine)
         back = convert.opt_state_to_numpy(ts)
         for a, b in zip(jax.tree.leaves(js), jax.tree.leaves(back)):
@@ -356,8 +357,8 @@ def test_linear_model_forward_and_loss_match_reference():
         np.asarray(jlin.predict_proba(jp, jcfg, b["x"])), rtol=1e-5, atol=1e-6)
     init = tapi.init(tcfg, "cpu")
     assert list(init) == ["beta"] and init["beta"].shape == (64,)
-    with pytest.raises(NotImplementedError, match="dense"):
-        tapi.make_loss(dataclasses.replace(tcfg, family="dense"))
+    with pytest.raises(NotImplementedError, match="ssm"):
+        tapi.make_loss(dataclasses.replace(tcfg, family="ssm"))
 
 
 def test_synthetic_data_equals_reference_exactly():
@@ -377,7 +378,7 @@ def test_synthetic_data_equals_reference_exactly():
     assert dataclasses.asdict(tget_config("logistic-paper")) == \
         dataclasses.asdict(jget_config("logistic-paper"))
     with pytest.raises(KeyError):
-        tget_config("qwen3-8b")
+        tget_config("olmoe-1b-7b")
 
 
 def test_straggler_sources_equal_reference():
