@@ -79,12 +79,14 @@ projection; check what it refuses (TMA alignment) and that under grad mode it is
 differentiable; and time it beside ``scaled_dot_product_attention`` in
 the same type, against the tensor-core bounds.  They hold the flash
 backward (``csrc/flash_attn_bwd.cu``) against the plain version's autograd
-over the same sweep (f32 1e-5 in relative error norm and 1e-4 of the
-largest gradient elementwise, bf16 2e-2 in relative norm), require the
-same bits from a second call, and the forward's bits with and without its
-log-sum-exp residual; and time the backward at the 4096-token shape beside
-SDPA's backward in the same type.  The build phase reports
-the flash kernels' registers, spills and shared memory.  Float32 products
+over the same sweep and the backward's tile edges (f32 1e-5 in relative
+error norm and 1e-4 of the largest gradient elementwise, bf16 2e-2 in
+relative norm), require the same bits from a second call, and the
+forward's bits with and without its log-sum-exp residual; and time the
+backward at the 4096-token shape beside SDPA's backward in the same type.
+The build phase reports every flash kernel's registers and spills, forward
+and backward, and the shared memory of both, and fails if one spills.
+Float32 products
 of the plain versions run in full f32: TF32 is switched off for matmuls
 and cuDNN.
 
@@ -101,6 +103,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -526,6 +529,12 @@ FLASH = [(2, 256, 4, 2, 64, "causal", 0, 0), (1, 128, 2, 2, 32, "full", 0, 0),
 # q, k, v as views of one fused projection (B, S, H + 2 Hkv, hd): strided
 # heads and rows, read in place by TMA
 FLASH_FUSED = (2, 320, 8, 2, 128)
+# the backward's own edges on top of FLASH: an S that is no multiple of its
+# 32- or 64-row tiles at hd 128, q_per_kv = 4 with a window and a query
+# offset, and hd 32 (64-byte rows for bf16) with q_per_kv = 4 and a window
+FLASH_BWD_EDGES = [(1, 1000, 16, 8, 128, "causal", 0, 0),
+                   (2, 97, 8, 2, 64, "window", 33, 5),
+                   (1, 160, 8, 2, 32, "window", 48, 16)]
 
 
 FLASH_BF16_REL_NORM = 1e-2
@@ -623,9 +632,10 @@ def check_flash(gen):
 
 
 # The backward's tolerances against the plain version's autograd (TF32 off):
-# the kernel sums in f32 on the CUDA cores, in other orders than the plain
-# loop's einsums, over up to S keys; bf16 against autograd through bf16
-# products (the plain version rounds P and the products to bf16)
+# the kernel runs its products as 3xTF32 (about 1e-6 relative) and sums in
+# f32 in other orders than the plain loop's einsums, over up to S keys; bf16
+# against autograd through bf16 products (the plain version rounds P and
+# the products to bf16, the kernel P and dS)
 FLASH_BWD_REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FLASH_BWD_MAX_ABS_OF_MAX = 1e-4      # f32: max |err| over max |plain grad|
 
@@ -640,13 +650,14 @@ def check_flash_bwd(gen):
     """The backward kernel against the plain version's autograd on the
     card over the forward's sweep (the 4096-token serve shape with
     q_per_kv = 2, a window, query offsets, hd 32 and 64 with ragged S, views
-    of one fused projection), f32 and bf16: one backward launch a call; the
-    same bits on a second call (no atomics); and the forward's output with
-    the log-sum-exp residual written bitwise the output without it."""
+    of one fused projection) and the backward's edges (FLASH_BWD_EDGES), f32
+    and bf16: one backward launch a call; the same bits on a second call (no
+    atomics); and the forward's output with the log-sum-exp residual written
+    bitwise the output without it."""
     r = {"max_abs_err": 0.0, "max_rel_norm_err": 0.0,
          "max_rel_norm_err_bf16": 0.0, "cases": 0}
     for dtype in (F32, torch.bfloat16):
-        for case in FLASH + [FLASH_FUSED]:
+        for case in FLASH + FLASH_BWD_EDGES + [FLASH_FUSED]:
             q, k, v, (kind, w, p0) = _flash_inputs(gen, case, dtype)
             g = q.shape[2] // k.shape[2]
             dout = _randn(gen, tuple(q.shape), dtype)
@@ -963,6 +974,26 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
             "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
             "achieved_TFLOPps": flops / (ms * 1e-3) / 1e12,
             "share_of_bound": bound_ms / ms, **extra}
+
+
+_FLASH_ENTRY = re.compile(r"(flash_kernel|fb_kernel|fb_dot_kernel)I(f|13__nv_bfloat16)"
+                          r"Li(\d+)E(?:Lb([01])E)?")
+
+
+def flash_kernels_ptxas(report):
+    """The flash kernels' lines of ``_build.ptxas_report()`` (registers and
+    spill bytes), forward and backward, under readable names such as
+    ``fb_kernel f32 hd128 dkdv``; fails when the build's log names none."""
+    out = {}
+    for name, info in report.items():
+        m = _FLASH_ENTRY.search(name)
+        if m:
+            kind = {"1": " dkdv", "0": " dq"}.get(m.group(4), "")
+            dtype = "f32" if m.group(2) == "f" else "bf16"
+            out[f"{m.group(1)} {dtype} hd{m.group(3)}{kind}"] = info
+    if not out:
+        fail("the build's ptxas report names no flash kernel")
+    return out
 
 
 # ---------------------------------------------------------------- main path
@@ -1820,13 +1851,19 @@ def main():
         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
     lib = _build.load()
-    flash_ptxas = {k: v for k, v in _build.ptxas_report().items()
-                   if "flash_kernel" in k}
+    flash_ptxas = flash_kernels_ptxas(_build.ptxas_report())
     flash_smem = {f"{t}_hd{hd}": lib.flash_attention_smem_bytes(code, hd)
                   for t, code in (("f32", 0), ("bf16", 1)) for hd in (32, 64, 128)}
+    bwd_smem = {f"{t}_hd{hd}": lib.flash_attention_bwd_smem_bytes(code, hd)
+                for t, code in (("f32", 0), ("bf16", 1)) for hd in (32, 64, 128)}
     say(phase="build", **_build.last_build,
         sources=[str(p.relative_to(HERE)) for p in _build.sources()],
-        flash_kernel_ptxas=flash_ptxas, flash_kernel_smem_bytes=flash_smem)
+        flash_kernel_ptxas=flash_ptxas, flash_kernel_smem_bytes=flash_smem,
+        flash_bwd_smem_bytes=bwd_smem)
+    spilled = {k: v for k, v in flash_ptxas.items()
+               if v.get("spill_stores", 0) or v.get("spill_loads", 0)}
+    if spilled:
+        fail(f"flash kernels spill registers: {spilled}")
 
     errs = check_kernels()
     errs["flash_attention_bwd"] = check_flash_bwd(torch.Generator().manual_seed(5))

@@ -159,6 +159,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                                                     i32] + [i64] * 9
                                       + [i32, i64, i64, f32, i32, ptr],
         "flash_attention_smem_bytes": [i32, i32],   # (dtype, hd)
+        "flash_attention_bwd_smem_bytes": [i32, i32],   # (dtype, hd)
         "empty_kernel_launch": [ptr],               # (stream)
     }
     for name, argtypes in signatures.items():

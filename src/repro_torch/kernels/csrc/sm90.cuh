@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of flash_attn.cu, written out in PTX:
-// shared-memory addresses, mbarriers, TMA tile loads, proxy fences, named
-// barriers, the wgmma matrix descriptor, and the wgmma instructions the
-// kernel runs.  Nothing here launches anything.
+// Hopper (sm_90a) building blocks of flash_attn.cu and flash_attn_bwd.cu,
+// written out in PTX: shared-memory addresses, mbarriers, TMA tile loads,
+// proxy fences, named barriers, register reallocation between warpgroups,
+// the wgmma matrix descriptor, and the wgmma instructions the kernels run.
+// Nothing here launches anything.
 #pragma once
 
 #include <cstdint>
@@ -84,6 +85,17 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(count) : "memory");
 }
 
+// Registers a thread of this warpgroup may hold from here on (a multiple of
+// 8 in 24 .. 256); every warp of the warpgroup executes it
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" :: "n"(N));
+}
+
 // ---------------------------------------------------------------- numbers
 // f32 rounded to nearest (ties away) at tf32 precision, as a b32 whose low
 // 13 bits are 0: the tensor cores read it exactly
@@ -113,6 +125,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
 }
 
 // keeps the compiler from moving reads or writes of accumulator registers

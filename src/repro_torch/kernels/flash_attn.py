@@ -27,11 +27,14 @@ The gradient (``csrc/flash_attn_bwd.cu``; the TPU kernel has none, the
 reference differentiates ``online_attention`` with XLA's autodiff) is a
 ``torch.autograd.Function``: under grad mode, with an input that requires
 grad, the forward kernel also writes each row's log-sum-exp, and the
-backward launches three CUDA-core kernels (``D = rowsum(dO o O)``; dK and dV
-per key tile, summed over the query heads of a KV head inside the block; dQ
-per query tile), which recompute the probabilities from that residual and
-use no atomics, so the gradient's bits repeat from call to call.  Outside
-grad mode the forward runs alone and writes no residual.
+backward launches three kernels (``D = rowsum(dO o O)``; dK and dV per key
+tile, summed over the query heads of a KV head inside the block; dQ per
+query tile), which recompute the probabilities from that residual and use
+no atomics, so the gradient's bits repeat from call to call.  Their
+products run on the tensor cores as the forward's do (3xTF32 ``wgmma`` for
+f32, one bf16 pass), fed by TMA, so ``dout`` too must be contiguous with a
+16-byte aligned base.  Outside grad mode the forward runs alone and writes
+no residual.
 
 The plain version is the reference's oracle, ``models/common.py``'s
 ``online_attention``: the same ordered loop over query chunks and key chunks

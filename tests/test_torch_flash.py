@@ -158,14 +158,16 @@ def test_plain_version_stays_differentiable_on_the_cpu(kind, w):
 
 @pytest.mark.parametrize("S,H,Hkv,kind,w,p0", [
     (2304, 4, 2, "causal", 0, 0), (320, 4, 1, "window", 96, 0),
-    (200, 4, 2, "causal", 0, 56)])
+    (200, 4, 2, "causal", 0, 56), (97, 8, 2, "window", 33, 5),
+    (1000, 4, 2, "causal", 0, 0)])
 def test_plain_flash_grad_matches_reference_online_attention(S, H, Hkv, kind,
                                                              w, p0):
     """The plain version's autograd (the CPU's gradient; the card's backward
     kernel is held to it) against ``jax.grad`` of the reference's
-    ``online_attention``, at S = 2304 (the LM's online branch) and with a
-    window and a query offset: rtol 1e-4 plus 1e-5 of the largest element
-    (f32 both sides, summed in other orders)."""
+    ``online_attention``, at S = 2304 (the LM's online branch), with a
+    window and a query offset, with q_per_kv = 4, and at an S that is no
+    multiple of the kernel's 32- and 64-row tiles: rtol 1e-4 plus 1e-5 of
+    the largest element (f32 both sides, summed in other orders)."""
     rng = np.random.default_rng([S, H, p0])
     hd = 32
     q = rng.standard_normal((1, S, H, hd)).astype(np.float32)

@@ -553,11 +553,17 @@ def test_flash_kernel_refuses_what_it_cannot_take_on_the_card():
 
 # the sweep above, then the backward's own edges: a key tile past every
 # query (query offset 0, keys > queries), a window whose key tiles begin
-# mid-sequence, hd 32 and 64 with ragged S
+# mid-sequence, hd 32 and 64 with ragged S; at the tensor-core tiles' edges
+# (32 and 64 rows): an S that is no multiple of either at hd 128, q_per_kv
+# = 4 with a window and a query offset, hd 32 (64-byte bf16 rows) with
+# q_per_kv = 4 and a window
 FLASH_BWD_SWEEP = FLASH_SWEEP + [
     (1, 200, 4, 2, 64, "causal", 0, 0),
     (1, 300, 4, 2, 128, "window", 70, 0),
     (2, 130, 4, 4, 32, "full", 0, 0),
+    (1, 1000, 16, 8, 128, "causal", 0, 0),
+    (2, 97, 8, 2, 64, "window", 33, 5),
+    (1, 160, 8, 2, 32, "window", 48, 16),
 ]
 FLASH_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}   # relative norm
 
@@ -630,6 +636,39 @@ def test_flash_backward_repeats_its_bits_and_lse_leaves_forward_alone():
                                                  kv_pos0=p0)
             for x, y in zip(one, two):
                 assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_flash_backward_launches_from_a_fresh_thread():
+    """The backward's first CUDA call on a thread that has made none (as on
+    the thread where autograd runs a backward): the tensor maps are encoded
+    with the device's context bound, and the gradient is the one the main
+    thread computes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import threading
+
+    from repro_torch.kernels import flash_attn
+    g = torch.Generator().manual_seed(4)
+    q, k, v, dout = (torch.randn(1, 64, 2, 64, generator=g).cuda()
+                     for _ in range(4))
+    out, lse = flash_attn._forward(q, k, v, "causal", 0, 0, residual=True)
+    want = flash_attn.flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    got = {}
+
+    def run():
+        try:
+            got["grads"] = flash_attn.flash_attention_bwd(q, k, v, out, lse, dout)
+        except Exception as e:          # reported on the test's thread
+            got["error"] = e
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in got, got.get("error")
+    torch.cuda.synchronize()
+    for a, b in zip(got["grads"], want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

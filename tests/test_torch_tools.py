@@ -1,6 +1,8 @@
 """The port's measurement tools against the sources they edit: every
 ablation of ``tools/flash_ablation.py`` and every variant of
-``tools/decode_ab.py`` applies to the kernel as it is."""
+``tools/decode_ab.py`` and ``tools/flash_bwd_ab.py`` applies to the kernel
+as it is; the backward A/B tool's arguments and its check of the old
+source."""
 import importlib.util
 import pathlib
 
@@ -41,3 +43,49 @@ def test_decode_variants_edit_the_kernel_source(variant):
 def test_decode_variants_refuse_a_text_the_kernel_lacks():
     with pytest.raises(ValueError, match="found 0 times"):
         decode_ab.ablated_source("int x;", [("not in the source", "")])
+
+
+_spec_fb = importlib.util.spec_from_file_location(
+    "flash_bwd_ab", ROOT / "tools" / "flash_bwd_ab.py")
+flash_bwd_ab = importlib.util.module_from_spec(_spec_fb)
+_spec_fb.loader.exec_module(flash_bwd_ab)
+
+
+@pytest.mark.parametrize("variant", sorted(flash_bwd_ab.VARIANTS))
+def test_flash_bwd_variants_edit_the_kernel_source(variant):
+    source = flash_bwd_ab.KERNEL.read_text()
+    edited = flash_bwd_ab.ablated_source(source, flash_bwd_ab.VARIANTS[variant])
+    assert edited != source
+
+
+def test_flash_bwd_variants_refuse_a_text_the_kernel_lacks():
+    with pytest.raises(ValueError, match="found 0 times"):
+        flash_bwd_ab.ablated_source("int x;", [("not in the source", "")])
+
+
+def test_flash_bwd_ab_takes_a_source_with_the_entry_point_only():
+    source = flash_bwd_ab.KERNEL.read_text()
+    assert flash_bwd_ab.check_old_source(source) == source
+    with pytest.raises(ValueError, match="flash_attention_bwd_launch"):
+        flash_bwd_ab.check_old_source(
+            source.replace('extern "C" int flash_attention_bwd_launch(',
+                           'extern "C" int some_other_launch('))
+    forward = (flash_bwd_ab.KERNEL.parent / "flash_attn.cu").read_text()
+    assert flash_bwd_ab.check_old_source(forward, "flash_attention_launch") == forward
+    with pytest.raises(ValueError, match="flash_attention_launch"):
+        flash_bwd_ab.check_old_source(source, "flash_attention_launch")
+
+
+def test_flash_bwd_ab_parses_its_arguments():
+    args = flash_bwd_ab.parse_args(["old.cu", "--variants", "no_split,kg1",
+                                    "--rounds", "3", "--out", "r.json",
+                                    "--old-forward", "fwd.cu"])
+    assert (str(args.old), args.variants, args.rounds, args.out,
+            str(args.old_forward)) == ("old.cu", ["no_split", "kg1"], 3,
+                                       "r.json", "fwd.cu")
+    plain = flash_bwd_ab.parse_args(["old.cu"])
+    assert plain.variants == [] and plain.old_forward is None
+    for bad in (["old.cu", "--variants", "no_such"], ["old.cu", "--rounds", "0"],
+                []):
+        with pytest.raises(SystemExit):
+            flash_bwd_ab.parse_args(bad)
