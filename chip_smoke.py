@@ -57,6 +57,29 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the decoded logits against the uncoded forward of the same
            prompts, the hedge (a straggler's payload never reaches the
            output bits), and no failed requests
+  checkpoint
+           (a) ``Trainer`` on ``logistic-paper`` at full width, code (8, 4,
+           2, 2), NAG, random stragglers, a snapshot every 2 steps into a
+           temporary directory: 6 steps, the step-6 snapshot torn to a third
+           of its size, a fresh ``Trainer`` that warns ``unreadable``, falls
+           back to step 4, replays the data stream (``skip_to_cursor``) and
+           the straggler stream to its cursor and takes 2 steps (counted from
+           0): the uninterrupted run's parameters and state, bitwise.
+           (b) inside ``train_lm``, after the synchronous steps: that
+           trainer's parameters and NAG state (16.3 GB) saved with
+           ``maybe_checkpoint(force=True)`` and restored onto the host into a
+           tree of the same structure, compared leaf by leaf bitwise; the
+           directory's free bytes, the seconds and GB/s of both
+  generate ``BatchedEngine`` on the serve phase's ``qwen3-1.7b`` weights at
+           full width and depth, f32: 4 prompts of 4096 tokens from a seed,
+           a dense cache of 4096 + 32 positions, 32 greedy tokens; counted
+           from 0 just before ``generate``: the prefill launches the flash
+           forward once a layer, the decode never; decode steps 0, 1 and 31
+           against the full-prompt forward of prompt ++ tokens with the
+           materialized f32 softmax (rtol = atol = 2e-4), the forward
+           through the flash kernel printed beside; the prefill's seconds, a decode step's median ms (steps
+           2-31, CUDA events), tokens/s, peak memory and the step's byte
+           bound (the weights but the input embedding, and the KV cache)
   train_lm coded training of the same ``qwen3-1.7b`` at full width on
            4096-token sequences, code (4, 3, 1, 2), one sequence a subset
            (a global batch of 4), random stragglers: ``Trainer`` with NAG
@@ -104,10 +127,13 @@ import math
 import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 HERE = pathlib.Path(__file__).resolve().parent
 
@@ -129,7 +155,7 @@ sys.path.insert(0, str(HERE / "src"))
 try:
     import numpy as np
 
-    from repro_torch import coding
+    from repro_torch import coding, convert
     from repro_torch.configs import get_config
     from repro_torch.core import make_code
     from repro_torch.data import CodedBatcher, make_synthetic_batch
@@ -145,8 +171,9 @@ try:
                                                   coded_encode_plain,
                                                   encode_path)
     from repro_torch.models import api as model_api
+    from repro_torch.models import common as model_common
     from repro_torch.optim import nag, sgd_momentum
-    from repro_torch.serving import CodedServer
+    from repro_torch.serving import BatchedEngine, CodedServer
     from repro_torch.train import (PipelineDriver, Trainer,
                                    make_coded_train_step)
     from repro_torch.tune import RandomStragglers
@@ -182,6 +209,20 @@ LM_SGD_LR = 1e-3               # SGD-momentum step of the pipelined LM path
 # the decoded gradient with a straggler against the uncoded one: f32, the
 # decode's float64-solved weights applied in f32 to sums of 3 subsets
 LM_GRAD_REL_TOL = 1e-4
+CKPT_BATCH = 64                # global batch of the checkpoint phase's run
+CKPT_STEPS = 6                 # steps of its uninterrupted run
+CKPT_EVERY = 2                 # a snapshot every 2 steps: 2, 4 and 6
+GEN_BATCH = 4                  # prompts of the generate phase
+GEN_PROMPT = 4096              # tokens a prompt
+GEN_NEW = 32                   # greedy tokens a prompt
+GEN_CHECKED = (0, 1, GEN_NEW - 1)   # decode steps held against the forward
+# decode logits against the full-prompt forward with the same attention
+# math (the materialized f32 softmax at every length, as the reference's
+# branch below 2048 tokens): f32, products of other shapes
+# (tests/test_models_math.py's tolerance).  The forward through the flash
+# kernel (3xTF32) is printed beside it: at 28 layers it is itself 2.9e-4
+# from the materialized one (tools/decode_vs_forward.py, PERF.md)
+GEN_TOL = 2e-4
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 HOST_CALLS = 200               # calls of one host-cost measurement
 
@@ -1478,6 +1519,107 @@ def run_main_path(args):
 
 
 # ------------------------------------------------------------- serve path
+def _bitwise(a, b):
+    """Equal bits (f32/int32 tensors of one shape, any devices)."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def run_checkpoint_resume(args):
+    """Checkpoint phase (a): a crash while the step-6 snapshot is written
+    and a resume past it, on ``logistic-paper`` at full width.
+
+    The uninterrupted run takes 6 steps with a snapshot every 2.  The
+    step-6 file is then torn to a third of its size; a fresh ``Trainer`` on
+    the same directory warns ``unreadable`` and resumes from step 4.  The
+    data stream is replayed to its cursor by ``skip_to_cursor`` and the
+    straggler stream by drawing the 4 patterns already inside the
+    parameters (the trainer, like the reference's, keeps no straggler
+    state), so its 2 steps (counted from 0) are the run's steps 5 and 6 and
+    must give the same bits."""
+    cfg = get_config("logistic-paper")
+    code = make_code(8, 4, 2, 2)
+    lr = 1e-6
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t_phase = time.perf_counter()
+
+    def batches():
+        rng = np.random.default_rng(SEED + 7)
+        while True:
+            yield {k: torch.from_numpy(v).to(DEV) for k, v in
+                   make_synthetic_batch(rng, cfg, CKPT_BATCH).items()}
+
+    def stragglers(skip):
+        src = RandomStragglers(seed=1)
+        for i in range(skip):
+            src.draw(i, code)
+        return src
+
+    def trainer(skip):
+        return Trainer(cfg, code, optimizer=nag(lr), seed=0, device=DEV,
+                       straggler_source=stragglers(skip), checkpoint_dir=d,
+                       checkpoint_every=CKPT_EVERY)
+
+    try:
+        tr = trainer(0)
+        stream = batches()
+        t0 = time.perf_counter()
+        logs = [tr.step(next(stream)) for _ in range(CKPT_STEPS)]
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        saved = tr._ckpt.steps()
+        if saved != [2, 4, 6]:
+            fail(f"checkpoint: snapshots at steps {saved}, not [2, 4, 6]")
+        p6 = tr._ckpt.dir / "ckpt_00000006.npz"
+        size = p6.stat().st_size
+        p6.write_bytes(p6.read_bytes()[: size // 3])
+
+        # ---- the counted path: the resumed trainer's construction and steps
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tr2 = trainer(4)
+        restore_s = time.perf_counter() - t0
+        said = [str(w.message) for w in caught]
+        if not any("unreadable" in m for m in said):
+            fail(f"checkpoint: no 'unreadable' warning past the torn file: {said}")
+        if (tr2._step_count, tr2._data_cursor) != (4, 4):
+            fail(f"checkpoint: resumed at step {tr2._step_count}, cursor "
+                 f"{tr2._data_cursor}, not 4 and 4")
+        stream2 = tr2.skip_to_cursor(batches())
+        logs2 = [tr2.step(next(stream2)) for _ in range(CKPT_STEPS - 4)]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        _note_paths("logistic-paper Trainer resumed from a checkpoint")
+        want = _expect(coded_encode_2d=2 * code.n * code.d, coded_decode_2d=2)
+        if counts != want:
+            fail(f"checkpoint: the resumed steps launched {counts}, not {want}")
+        same = {"beta": _bitwise(tr.params["beta"], tr2.params["beta"]),
+                "x_prev": _bitwise(tr.opt_state["x_prev"]["beta"],
+                                   tr2.opt_state["x_prev"]["beta"]),
+                "lam": _bitwise(tr.opt_state["lam"], tr2.opt_state["lam"]),
+                "losses": [m["loss"] for m in logs[4:]] ==
+                          [m["loss"] for m in logs2]}
+        if not all(same.values()):
+            fail(f"checkpoint: the resumed run differs from the uninterrupted "
+                 f"one: {same}")
+        resaved = tr2._ckpt.steps()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    say(phase="checkpoint", part="a", model=cfg.name, l=cfg.d_model,
+        code=[8, 4, 2, 2], optimizer="nag", lr=lr, global_batch=CKPT_BATCH,
+        steps=CKPT_STEPS, checkpoint_every=CKPT_EVERY, snapshots=saved,
+        snapshot_bytes=size, torn_to_bytes=size // 3,
+        warnings=[m[:120] for m in said], resumed_at_step=4,
+        run_s=run_s, restore_s=restore_s, snapshots_after_resume=resaved,
+        bitwise=same, launches=counts, losses=[m["loss"] for m in logs],
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return counts
+
+
 def run_serve_path(args):
     """``CodedServer`` on qwen3-1.7b at full width with 4096-token prompts.
 
@@ -1590,7 +1732,146 @@ def run_serve_path(args):
         max_abs_err_vs_uncoded=err, tolerance=SERVE_REL_TOL * max(1.0, scale),
         hedge_bitwise=True, stragglers_1_vs_none_max_abs_diff=diff_full,
         hedged_wall_ms=hedged.wall_s * 1e3, unhedged_wall_ms=full.wall_s * 1e3)
-    return counts, len(results)
+    return counts, len(results), params
+
+
+class materialized_attention:
+    """Within it, the dense LM's attention is the materialized f32 softmax
+    at every length (the reference's branch up to 2048 tokens), never the
+    flash kernel."""
+
+    def __enter__(self):
+        self.old = model_common.CHUNK_THRESHOLD
+        model_common.CHUNK_THRESHOLD = 1 << 40
+
+    def __exit__(self, *exc):
+        model_common.CHUNK_THRESHOLD = self.old
+
+
+def run_generate_path(args, params):
+    """``BatchedEngine.generate`` on qwen3-1.7b at full width and depth
+    (the serve phase's seeded weights, f32): 4 prompts of 4096 tokens, 32
+    greedy tokens against a dense cache of 4128 positions.
+
+    Counted window: the launch counts are set to 0 just before
+    ``generate`` and read at its prefill's logits and after it.  Outside
+    it: decode steps 0, 1 and 31 against the full-prompt forward of the
+    prompt and the tokens fed so far, with the materialized softmax (the
+    decode's own attention math); the distance to the forward through the
+    flash kernel is printed beside it."""
+    cfg = get_config("qwen3-1.7b")
+    t_phase = time.perf_counter()
+    seq_len = GEN_PROMPT + GEN_NEW
+    prompts = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+    eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=seq_len,
+                        device=DEV)
+    events, flash_at, kept = {}, {}, {}
+
+    def on_logits(t, logits):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[t] = ev
+        flash_at[t] = ops.launch_counts()["flash_attention"]
+        if t in GEN_CHECKED:
+            kept[t] = logits
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    flash_attn.PLAIN_CALLS["flash_attention"] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, GEN_NEW, on_logits=on_logits)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plain = flash_attn.PLAIN_CALLS["flash_attention"]
+    prefill_flash = flash_at[-1]
+    decode_flash = counts["flash_attention"] - prefill_flash
+    if plain or prefill_flash != cfg.n_layers or decode_flash:
+        fail(f"generate: flash launches {prefill_flash} in the prefill and "
+             f"{decode_flash} in the decode, plain calls {plain}; expected "
+             f"{cfg.n_layers}, 0 and 0")
+    want = _expect(flash_attention=cfg.n_layers)
+    if counts != want:
+        fail(f"generate: kernel launches {counts}, expected {want}")
+    if tokens.shape != (GEN_BATCH, GEN_NEW) or tokens.dtype != np.int32 or \
+            not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        fail(f"generate: tokens of shape {tokens.shape}, type {tokens.dtype} "
+             f"or out of [0, {cfg.vocab})")
+    prefill_ms = start.elapsed_time(events[-1])
+    step_ms = [events[t - 1].elapsed_time(events[t]) for t in range(GEN_NEW)]
+    median_ms = statistics.median(step_ms[2:])
+
+    # ---- outside the window: decode logits against the full forward
+    errs = {}
+    t1 = time.perf_counter()
+    toks = torch.from_numpy(np.concatenate([prompts, tokens], axis=1)).to(DEV)
+    forward = model_api.make_forward(cfg)
+    for t in GEN_CHECKED:
+        batch = {"tokens": toks[:, :GEN_PROMPT + t + 1]}
+        with torch.no_grad(), materialized_attention():
+            want_l = forward(eng.params, batch)
+        with torch.no_grad():
+            flash_l = forward(eng.params, batch)
+        err = (kept[t] - want_l).abs()
+        excess = (err - GEN_TOL * want_l.abs()).max().item()
+        errs[str(t)] = {
+            "max_abs_err": err.max().item(),
+            "max_abs_logit": want_l.abs().max().item(),
+            "max_abs_err_vs_flash_forward": (kept[t] - flash_l).abs().max().item(),
+            "flash_forward_vs_materialized": (flash_l - want_l).abs().max().item()}
+        del want_l, flash_l
+        if not excess <= GEN_TOL:
+            fail(f"generate: decode step {t}'s logits differ from the "
+                 f"full-prompt forward past rtol = atol = {GEN_TOL}: "
+                 f"{errs[str(t)]}")
+        # the greedy token fed next is the decode's own argmax
+        if t + 1 < GEN_NEW and not torch.equal(
+                kept[t].argmax(-1).cpu(),
+                torch.from_numpy(tokens[:, t + 1]).long()):
+            fail(f"generate: token {t + 1} is not step {t}'s argmax")
+    check_s = time.perf_counter() - t1
+    weight_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
+                       if k != "embed")
+    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                      for shape, dt in eng.arts.cache_shapes.values())
+    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    if args.profile:
+        with torch.no_grad():
+            _, cache = eng.arts.prefill(eng.params,
+                                        {"tokens": toks[:, :GEN_PROMPT]})
+        tok = toks[:, GEN_PROMPT].to(torch.int32)
+
+        def one_step():
+            nonlocal cache
+            _, cache = eng.arts.decode(eng.params, cache, tok)
+
+        one_step()                     # warm; 3 traced steps after it
+        profile_steps(one_step, median_ms, "qwen3-1.7b BatchedEngine decode step",
+                      steps=3)
+        del cache
+    say(phase="generate", model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+        max_new=GEN_NEW, seq_len=seq_len, window=0, dtype="float32",
+        weights="the serve phase's, random from a seed",
+        flash_launches_prefill=prefill_flash, flash_launches_decode=decode_flash,
+        launches=counts, plain_flash_calls=plain,
+        generate_wall_s=wall_s, prefill_s=prefill_ms / 1e3,
+        decode_step_ms=step_ms, decode_step_ms_median_2_to_31=median_ms,
+        tokens_per_s=GEN_BATCH * 1e3 / median_ms,
+        decode_bytes_weights=weight_bytes, decode_bytes_kv_cache=cache_bytes,
+        decode_step_bound_ms=bound_ms, decode_step_bound_by="bytes",
+        decode_step_over_bound=median_ms / bound_ms,
+        peak_memory_bytes=peak, logits_vs_forward=errs, tolerance=GEN_TOL,
+        check_s=check_s, tokens_first_row=tokens[0].tolist(),
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return counts
 
 
 # ----------------------------------------------------- LM training path
@@ -1751,6 +2032,62 @@ def _lm_fill_drain_check(tr, batch):
     return True
 
 
+def checkpoint_lm(tr):
+    """Checkpoint phase (b): the synchronous LM trainer's parameters and
+    NAG state saved with ``maybe_checkpoint(force=True)`` and restored onto
+    the host into a tree of the same structure (``like`` leaves of
+    ``torch.empty`` on the CPU), then compared leaf by leaf, bitwise, one
+    leaf on the host at a time: no second copy on the card."""
+    t_phase = time.perf_counter()
+    d = tr._ckpt.dir
+    state = [*tr.params.values(), *tr.opt_state["x_prev"].values(),
+             tr.opt_state["lam"]]
+    nbytes = sum(v.numel() * v.element_size() for v in state)
+    free = shutil.disk_usage(d).free
+    if free < nbytes * 1.01:
+        fail(f"checkpoint: {d} has {free} bytes free, the snapshot needs "
+             f"{nbytes}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.maybe_checkpoint(force=True)
+    save_s = time.perf_counter() - t0
+    path = tr._ckpt._step_path(tr._step_count)
+    file_bytes = path.stat().st_size
+
+    def host(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="cpu")
+
+    like = {"params": convert.unflatten({k: host(v) for k, v in tr.params.items()}),
+            "opt_state": {"x_prev": convert.unflatten(
+                {k: host(v) for k, v in tr.opt_state["x_prev"].items()}),
+                "lam": host(tr.opt_state["lam"])}}
+    t0 = time.perf_counter()
+    got, meta = tr._ckpt.restore_latest(like)
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = convert.flatten(got["params"])
+    x_prev = convert.flatten(got["opt_state"]["x_prev"])
+    bad = [k for k, v in tr.params.items() if not _bitwise(v, params[k])]
+    bad += [f"x_prev/{k}" for k, v in tr.opt_state["x_prev"].items()
+            if not _bitwise(v, x_prev[k])]
+    if not _bitwise(tr.opt_state["lam"], got["opt_state"]["lam"]):
+        bad.append("lam")
+    compare_s = time.perf_counter() - t0
+    if bad or meta.get("step") != tr._step_count:
+        fail(f"checkpoint: the restored LM state differs at {bad[:4]} "
+             f"(step {meta.get('step')})")
+    del got, params, x_prev, like
+    say(phase="checkpoint", part="b", model=tr.cfg.name,
+        n_layers=tr.cfg.n_layers, step=tr._step_count,
+        leaves=len(state), state_bytes=nbytes, file_bytes=file_bytes,
+        free_bytes_before=free, save_s=save_s,
+        save_gb_per_s=nbytes / save_s / 1e9, restore_s=restore_s,
+        restore_gb_per_s=nbytes / restore_s / 1e9, compare_s=compare_s,
+        bitwise=True, metadata={k: meta[k] for k in ("arch", "data_cursor",
+                                                     "seed", "step")},
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+
+
 def run_train_lm_path(args):
     """Coded training of qwen3-1.7b at full width on 4096-token sequences.
 
@@ -1779,8 +2116,11 @@ def run_train_lm_path(args):
         torch.cuda.empty_cache()
         at_start = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
+        ckpt_dir = None if pipelined else tempfile.mkdtemp(
+            prefix="chip_smoke_lm_ckpt_")
         tr = Trainer(cfg, code, opt, spec=spec, seed=SEED, device=DEV,
-                     straggler_source=RandomStragglers(seed=3))
+                     straggler_source=RandomStragglers(seed=3),
+                     checkpoint_dir=ckpt_dir)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         logs, counts, paths, peak = _lm_run(tr, batches, label,
@@ -1828,6 +2168,11 @@ def run_train_lm_path(args):
             memory_limit_bytes=torch.cuda.get_device_properties(0).total_memory,
             **check)
         res[label] = counts
+        if ckpt_dir is not None:
+            try:
+                checkpoint_lm(tr)
+            finally:
+                shutil.rmtree(ckpt_dir, ignore_errors=True)
         del tr, logs
     return res
 
@@ -1903,7 +2248,12 @@ def main():
 
     counts = run_main_path(args)
     serve_path = "qwen3-1.7b CodedServer.step"
-    counts[serve_path], n_batches = run_serve_path(args)
+    counts[serve_path], n_batches, params = run_serve_path(args)
+    gen_path = "qwen3-1.7b BatchedEngine.generate"
+    counts[gen_path] = run_generate_path(args, params)
+    del params
+    counts["logistic-paper Trainer resumed from a checkpoint"] = \
+        run_checkpoint_resume(args)
     counts.update(run_train_lm_path(args))
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
@@ -1946,6 +2296,8 @@ def main():
             "dtype": meas["dtype"], "ms_l2_warm": meas["ms_l2_warm"]})
         if name == "flash_attention":
             kernels[-1]["launches_per_batch"] = kernels[-1]["launches"] / n_batches
+            kernels[-1]["launches_generate_prefill"] = \
+                counts[gen_path]["flash_attention"]
         if name == "flash_attention_bwd":
             kernels[-1]["launches_per_step"] = kernels[-1]["launches"] / LM_STEPS
             kernels[-1]["max_rel_norm_err"] = errs[name]["max_rel_norm_err"]

@@ -31,7 +31,8 @@ def flatten(tree: Mapping[str, Any]) -> dict:
     return dict(_flatten(tree))
 
 
-def _unflatten(flat: Mapping[str, Any]) -> dict:
+def unflatten(flat: Mapping[str, Any]) -> dict:
+    """Flat ``{"a/b": leaf}`` -> nested dict (the inverse of ``flatten``)."""
     out: dict = {}
     for key, v in flat.items():
         node = out
@@ -67,7 +68,7 @@ def params_from_jax(tree: Mapping[str, Any],
 
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> dict:
     """Flat dict of tensors -> nested tree of numpy arrays."""
-    return _unflatten({k: _numpy(v) for k, v in params.items()})
+    return unflatten({k: _numpy(v) for k, v in params.items()})
 
 
 # the sub-trees of each optimizer's state that mirror the parameter tree

@@ -8,6 +8,10 @@
   (last-token logits, cache)`` for the LM families.
 - ``make_forward(cfg, window)``: ``fn(params, batch) -> per-request output``,
   the unit of work coded serving shards across replicas.
+- ``make_decode(cfg, window)``: ``fn(params, cache, token) -> (logits,
+  cache)``, one KV-cache decode step (the cache is consumed).
+- ``cache_spec(cfg, B, S, window)`` / ``init_cache``: the decode state's
+  shapes and types, and a zero state.
 """
 from __future__ import annotations
 
@@ -83,5 +87,37 @@ def make_forward(cfg, *, window: int = 0):
 
     def fn(params, batch):
         return mod.last_logits(params, cfg, batch["tokens"], window=window)
+
+    return fn
+
+
+def _decoder(cfg):
+    mod = get_module(cfg)
+    if not hasattr(mod, "decode_step"):
+        raise NotImplementedError(
+            f"model family {cfg.family!r} has no KV-cache decode")
+    return mod
+
+
+def cache_spec(cfg, B: int, S: int, *, window: int = 0) -> dict:
+    """``{name: (shape, dtype)}`` of the decode state."""
+    return _decoder(cfg).cache_spec(cfg, B, S, window=window)
+
+
+def init_cache(cfg, B: int, S: int, *, window: int = 0,
+               device: str | torch.device = "cuda") -> dict:
+    """A zero decode state on ``device`` (default: the card; raises when
+    there is none)."""
+    return _decoder(cfg).init_cache(cfg, B, S, window=window,
+                                    device=resolve_device(device))
+
+
+def make_decode(cfg, *, window: int = 0):
+    """Returns fn(params, cache, token) -> (logits, cache); the input cache
+    is consumed (updated in place and returned)."""
+    mod = _decoder(cfg)
+
+    def fn(params, cache, token):
+        return mod.decode_step(params, cfg, cache, token, window=window)
 
     return fn

@@ -1,6 +1,7 @@
 """Shared model components of the dense LM: norms, RoPE, GQA attention (the
 materialized softmax for short sequences, the online softmax for long ones),
-SwiGLU MLP, the prefill cache layout, and the cross-entropy loss.
+SwiGLU MLP, the prefill cache layout, one-token decoding against a KV cache,
+and the cross-entropy loss.
 
 Conventions, as in the reference (``repro/models/common.py``):
 
@@ -53,6 +54,19 @@ def rope_freqs(hd: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
 
 
+_FREQS: dict = {}   # (hd, theta, device) -> rope_freqs as f32 on the device
+
+
+def _device_freqs(hd: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs`` in f32 on ``device``, copied there once: a copy from
+    the host a call would wait for the device, a sync a layer and token."""
+    key = (hd, theta, device)
+    if key not in _FREQS:
+        _FREQS[key] = torch.as_tensor(rope_freqs(hd, theta),
+                                      dtype=torch.float32, device=device)
+    return _FREQS[key]
+
+
 def apply_rope(x: torch.Tensor, pos: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (..., S, H, hd), pos: (..., S) int -> rotated x (same type).
@@ -60,8 +74,7 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor,
     The reference's pairing: the first half of ``hd`` with the second half
     (not interleaved pairs)."""
     hd = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
-                            device=x.device)                     # (hd/2,)
+    freqs = _device_freqs(hd, theta, x.device)                   # (hd/2,)
     ang = pos.to(torch.float32)[..., None] * freqs               # (..., S, hd/2)
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -147,9 +160,7 @@ def gqa_scores_attend(q, k, v, mask, q_per_kv: int) -> torch.Tensor:
     logits = logits / np.sqrt(hd)
     if mask.ndim == 2:
         mask = mask[None]
-    logits = torch.where(mask[:, None, None], logits,
-                         torch.tensor(-1e30, dtype=torch.float32,
-                                      device=logits.device))
+    logits = torch.where(mask[:, None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
     return out.reshape(B, Sq, H, hd)
@@ -224,6 +235,36 @@ def self_attention_with_kv(p: dict, cfg, x: torch.Tensor, pos: torch.Tensor,
     q, k, v = qkv_project(p, cfg, x, pos)
     y = _out_proj(_attend(q, k, v, cfg, mask_kind, window), p["wo"])
     return y, k, v
+
+
+# ------------------------------------------------------- KV-cache decoding
+def attention_decode(p: dict, cfg, x: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: int = 0):
+    """One-token decode.  x: (B, 1, D); k/v_cache: (B, S, Hkv, hd); pos: the
+    0-d int tensor of the token's absolute position, on the device.
+
+    This step's k/v are written into the caches in place (slot ``pos`` for a
+    dense cache, ``pos % S`` for a ring of ``window`` slots) and the caches
+    are returned: the reference donates them to a functional update, here
+    they are consumed.  The slot is a device index, so nothing waits for the
+    host.  The attention is the materialized softmax over the cache's
+    ``S`` slots, never the flash kernel: a single query row.
+    """
+    B = x.shape[0]
+    q, k, v = qkv_project(p, cfg, x, pos.expand(B, 1))
+    S = k_cache.shape[1]
+    slot = (pos % S if window else pos).reshape(1).long()
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    j = torch.arange(S, device=x.device)
+    if window:
+        valid = (j <= pos % S) | (pos >= S)          # ring buffer fullness
+    else:
+        valid = j <= pos
+    mask = valid[None, None, :].expand(B, 1, S)
+    out = gqa_scores_attend(q, k_cache, v_cache, mask, cfg.q_per_kv)
+    return _out_proj(out, p["wo"]), k_cache, v_cache
 
 
 def pack_cache(k: torch.Tensor, slots: int, window: int) -> torch.Tensor:

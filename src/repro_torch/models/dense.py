@@ -1,8 +1,8 @@
 """Dense decoder-only transformer LM (llama/qwen family): GQA + SwiGLU, a
 Python loop over the stacked layers, the training loss with each layer
-recomputed in the backward (the reference's remat'd scan), and the
-full-prompt prefill that coded serving runs.  KV-cache decoding
-(``decode_step``, ``cache_spec`` / ``init_cache``) is not ported yet."""
+recomputed in the backward (the reference's remat'd scan), the full-prompt
+prefill that coded serving runs, and KV-cache decoding (dense or
+sliding-window ring cache)."""
 from __future__ import annotations
 
 import torch
@@ -104,6 +104,23 @@ def last_logits(params: dict, cfg, tokens: torch.Tensor, *,
     return _run_prompt(params, cfg, tokens, window)
 
 
+def cache_spec(cfg, B: int, S: int, *, window: int = 0) -> dict:
+    """Shapes and types of the KV cache, ``{"k", "v": ((L, B, slots, Hkv,
+    hd), dtype), "pos": ((), int32)}`` (``S`` = max context; a sliding
+    window stores ``min(S, window)`` slots)."""
+    slots = min(S, window) if window else S
+    kv = ((cfg.n_layers, B, slots, cfg.n_kv_heads, cfg.head_dim_),
+          cm.cdtype(cfg))
+    return {"k": kv, "v": kv, "pos": ((), torch.int32)}
+
+
+def init_cache(cfg, B: int, S: int, *, window: int = 0,
+               device: str | torch.device = "cuda") -> dict:
+    """A zero KV cache of ``cache_spec``'s shapes on ``device``."""
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in cache_spec(cfg, B, S, window=window).items()}
+
+
 def prefill(params: dict, cfg, tokens: torch.Tensor, cache_len: int, *,
             window: int = 0):
     """Run the prompt, return (last-token logits (B, V), filled cache).
@@ -125,3 +142,31 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, cache_len: int, *,
              "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
                                  device=logits.device)}
     return logits, cache
+
+
+def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor, *,
+                window: int = 0):
+    """One decode step.  token: (B,) int; cache from ``init_cache`` or
+    ``prefill``, with ``cache["pos"]`` the absolute position of the token
+    being written (a 0-d int32 tensor on the device).
+
+    Returns (logits (B, V), cache).  The input cache is consumed: each
+    layer's k/v go into ``cache["k"]`` / ``cache["v"]`` in place and the
+    same tensors come back, with ``pos`` advanced by one (the reference
+    donates the cache to a functional update; copying it a token would
+    double the step's memory traffic).  Pass a clone to keep the old one.
+    """
+    with torch.no_grad():
+        pos = cache["pos"]
+        x = cm.embed_tokens(params["embed"], token[:, None], cm.cdtype(cfg))
+        layers = cm.layer_list(params, "layers/", cfg.n_layers)
+        for lp, kc, vc in zip(layers, torch.unbind(cache["k"]),
+                              torch.unbind(cache["v"])):
+            y, _, _ = cm.attention_decode(lp["attn"], cfg,
+                                          cm.rms_norm(x, lp["ln1"]), kc, vc,
+                                          pos, window=window)
+            x = x + y
+            x = x + cm.swiglu(lp["mlp"], cm.rms_norm(x, lp["ln2"]))
+        x = cm.rms_norm(x, params["ln_f"])
+        logits = cm.unembed(x, params["unembed"])[:, 0]
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -1,27 +1,34 @@
-"""`repro_torch.serving`: coded inference.
+"""`repro_torch.serving`: generation and coded inference.
 
-The coded inference engine (``CodedServer`` + ``make_coded_forward``): the
-paper's ``(d, s, m)`` codes applied to batched forward passes.  Replicas
-compute ``d`` coded shards of the activations, the engine decodes the batch
-from the fastest ``n - s`` replicas (the decode is bit-wise independent of
-straggler payloads), and ``partial`` specs serve past-``s`` failures under
-the ``ServeSLO`` error bound.  The server and ``make_coded_train_step``
-construct from one ``repro_torch.coding.SchemeSpec``.
+- ``BatchedEngine`` / ``build_serve_artifacts``: batched greedy generation
+  on one device, a prefill (the flash attention kernel on the card above
+  2048 tokens) and then one KV-cache decode step a token; the cache is
+  updated in place.
+- ``CodedServer`` + ``make_coded_forward``: the paper's ``(d, s, m)`` codes
+  applied to batched forward passes.  Replicas compute ``d`` coded shards of
+  the activations, the engine decodes the batch from the fastest ``n - s``
+  replicas (the decode is bit-wise independent of straggler payloads), and
+  ``partial`` specs serve past-``s`` failures under the ``ServeSLO`` error
+  bound.  The server and ``make_coded_train_step`` construct from one
+  ``repro_torch.coding.SchemeSpec``.
 
-Not ported yet: the KV-cache decode surface (``BatchedEngine``,
-``build_serve_artifacts``) and the serving auto-tuner.
+Not ported yet: the serving auto-tuner.
 """
 from .batcher import Request, RequestBatcher
 from .coded import ForwardArtifacts, failed_request_rows, make_coded_forward
-from .engine import BatchResult, CodedServer, ServeSLO
+from .engine import (BatchedEngine, BatchResult, CodedServer, ServeArtifacts,
+                     ServeSLO, build_serve_artifacts)
 
 __all__ = [
+    "BatchedEngine",
     "BatchResult",
     "CodedServer",
     "ForwardArtifacts",
     "Request",
     "RequestBatcher",
+    "ServeArtifacts",
     "ServeSLO",
+    "build_serve_artifacts",
     "failed_request_rows",
     "make_coded_forward",
 ]

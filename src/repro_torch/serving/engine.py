@@ -1,18 +1,24 @@
-"""The coded inference server: the paper's scheme applied to inference.
+"""Serving: prefill + KV-cache decode for batched greedy generation, and
+the coded inference server.
 
-Batched forward passes ride the coded replica layout of
-``repro_torch.serving.coded``; the engine decodes from the fastest ``n - s``
-replicas (hedging: straggler payloads never reach the output bits) and, with
-a ``partial`` spec, serves past-``s`` failures under a certified error bound.
+``build_serve_artifacts`` / ``BatchedEngine`` run the model's prefill and
+decode steps on one device: a prompt batch is prefilled (its attention
+through the flash kernel on the card above 2048 tokens), then decoded one
+token a step against the cache, greedily.  The :class:`CodedServer` is the
+paper's scheme applied to inference: batched forward passes ride the coded
+replica layout of ``repro_torch.serving.coded``; the engine decodes from
+the fastest ``n - s`` replicas (hedging: straggler payloads never reach the
+output bits) and, with a ``partial`` spec, serves past-``s`` failures under
+a certified error bound.
 
-Not ported yet: the KV-cache decode surface (``BatchedEngine``,
-``build_serve_artifacts``) and the serving auto-tuner
-(``CodedServer(autotune=)``, refused with ``NotImplementedError``).
+Not ported yet: the serving auto-tuner (``CodedServer(autotune=)``, refused
+with ``NotImplementedError``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -21,9 +27,99 @@ from .. import coding
 from .._device import resolve_device
 from ..comm import Comm
 from ..data import CodedBatcher
+from ..models import api as model_api
 from ..tune.stragglers import as_straggler_source
 from .batcher import Request, RequestBatcher
 from .coded import ForwardArtifacts, failed_request_rows, make_coded_forward
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeArtifacts:
+    """The serving surface for one arch x shape on one device: prefill and
+    decode callables and the cache's ``{name: (shape, dtype)}``.  (The
+    reference also carries the shardings its mesh needs; one device has
+    none.)"""
+
+    prefill: Callable | None
+    decode: Callable
+    cache_shapes: dict
+    device: torch.device
+
+
+def build_serve_artifacts(cfg, *, batch: int, seq_len: int, window: int = 0,
+                          device: str | torch.device = "cuda"
+                          ) -> ServeArtifacts:
+    """Prefill and decode for one arch x shape on ``device`` (default: the
+    card; raises when there is none).  ``prefill(params, {"tokens": (batch,
+    S)})`` gives the last-token logits and a cache of ``seq_len`` positions
+    (``min(seq_len, window)`` ring slots with a window);
+    ``decode(params, cache, token)`` consumes the cache and returns it
+    advanced.  Both run without autograd."""
+    dev = resolve_device(device)
+    pre = model_api.make_prefill(cfg, seq_len, window=window)
+
+    def prefill(params, batch_):
+        with torch.no_grad():
+            return pre(params, batch_)
+
+    return ServeArtifacts(
+        prefill=prefill, decode=model_api.make_decode(cfg, window=window),
+        cache_shapes=model_api.cache_spec(cfg, batch, seq_len, window=window),
+        device=dev)
+
+
+class BatchedEngine:
+    """Batched greedy generation on one device: fixed batch slots, one
+    prefill, then one decode step a token.  Where the reference takes a
+    mesh, the port takes ``device`` (default: the card; raises when there is
+    none); ``params`` are moved there."""
+
+    def __init__(self, cfg, params: dict, *, batch: int, seq_len: int,
+                 window: int = 0, device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.arts = build_serve_artifacts(cfg, batch=batch, seq_len=seq_len,
+                                          window=window, device=device)
+        self.device = self.arts.device
+        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.batch = batch
+        self.seq_len = seq_len
+        self.window = window
+
+    def generate(self, prompts, max_new: int, *,
+                 on_logits: Callable[[int, torch.Tensor], None] | None = None
+                 ) -> np.ndarray:
+        """prompts: (batch, prompt_len) int32 -> (batch, max_new) int32
+        greedy tokens, on the host.
+
+        Tokens and positions stay on the device until the end (no host
+        sync a token).  ``on_logits(t, logits)``, when given, sees the
+        prefill's logits as ``t = -1`` and decode step ``t``'s (which
+        consumed token ``t``) as ``t``, each a (batch, vocab) device
+        tensor, as soon as the step is enqueued.
+        """
+        prompts = torch.as_tensor(np.asarray(prompts)).to(self.device)
+        B, P = prompts.shape
+        if B != self.batch:
+            raise ValueError(f"{B} prompts for an engine of {self.batch} "
+                             f"slots")
+        if not self.window and P + max_new > self.seq_len:
+            raise ValueError(
+                f"a dense cache of {self.seq_len} positions cannot hold a "
+                f"{P}-token prompt and {max_new} new tokens")
+        logits, cache = self.arts.prefill(self.params, {"tokens": prompts})
+        if on_logits is not None:
+            on_logits(-1, logits)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        outs = []
+        for t in range(max_new):
+            outs.append(tok)
+            logits, cache = self.arts.decode(self.params, cache, tok)
+            if on_logits is not None:
+                on_logits(t, logits)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        if not outs:
+            return np.zeros((B, 0), np.int32)
+        return torch.stack(outs, dim=1).cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)

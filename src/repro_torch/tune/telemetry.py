@@ -1,5 +1,6 @@
-"""Per-worker step timings (the part of the reference's telemetry module
-that the straggler sources need; the step records, the log and the
+"""Per-worker step timings and the scheme accessors (the parts of the
+reference's telemetry module that the straggler sources and the trainer's
+scheme signature need; the step records, the log and the
 shifted-exponential samplers wait for the auto-tuner's port)."""
 from __future__ import annotations
 
@@ -33,3 +34,15 @@ class WorkerTimes:
         order = np.argsort(t)
         slow = tuple(int(i) for i in order[n - n_drop:]) if n_drop else ()
         return slow, float(t[order[n - n_drop - 1]])
+
+
+def scheme_loads(code) -> tuple[int, ...]:
+    """Per-worker subset loads of any ``GradCode``-duck scheme object
+    (uniform fallback ``(d,) * n`` for minimal ducks without ``loads``)."""
+    return tuple(getattr(code, "loads", (code.d,) * code.n))
+
+
+def scheme_k(code) -> int:
+    """Subset count ``k`` of any ``GradCode``-duck scheme object (``n``
+    for ducks without ``num_subsets`` — the uniform family's value)."""
+    return int(getattr(code, "num_subsets", code.n))

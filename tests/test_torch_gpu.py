@@ -739,3 +739,72 @@ def test_reduced_prefill_with_the_kernel_matches_plain_path():
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(cache["k"].cpu(), want_cache["k"], rtol=1e-4,
                                atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 16])
+def test_reduced_decode_on_the_card_matches_the_cpu(window):
+    """Reduced qwen3-1.7b: a 2304-token prefill (the flash kernel) and 4
+    decode steps on the card against the same calls on the CPU, logits at
+    2e-4; the decode launches no flash kernel, and its cache comes back
+    the same tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-1.7b").reduced()
+    params = api.init(cfg, "cpu", torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 2308),
+                         generator=torch.Generator().manual_seed(1))
+    prefill = api.make_prefill(cfg, 2308, window=window)
+    decode = api.make_decode(cfg, window=window)
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        t = toks.to(dev)
+        with torch.no_grad():
+            _, cache = prefill(p, {"tokens": t[:, :2304]})
+        n0 = flash_attn.LAUNCHES["flash_attention"]
+        k = cache["k"]
+        out = []
+        for i in range(2304, 2308):
+            lg, cache = decode(p, cache, t[:, i])
+            out.append(lg.cpu())
+        assert cache["k"] is k and int(cache["pos"]) == 2308
+        assert flash_attn.LAUNCHES["flash_attention"] == n0
+        logits[dev] = out
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_round_trip_of_card_tensors(tmp_path, dtype):
+    """A tree of tensors on the card saved and restored into a like on the
+    card: the same bits, on the card, in the like's type."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.checkpoint import CheckpointManager
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"params": {"w": torch.randn(64, 33, generator=g, device="cuda")
+                       .to(dtype), "b": [torch.randn(7, generator=g,
+                                                     device="cuda").to(dtype)]},
+            "opt_state": {"t": torch.tensor(5, dtype=torch.int32,
+                                            device="cuda")}}
+    mgr = CheckpointManager(tmp_path, keep=1)
+    mgr.save(3, tree, {"arch": "test"})
+    like = {"params": {"w": torch.zeros(64, 33, dtype=dtype, device="cuda"),
+                       "b": [torch.zeros(7, dtype=dtype, device="cuda")]},
+            "opt_state": {"t": torch.zeros((), dtype=torch.int32,
+                                           device="cuda")}}
+    got, meta = mgr.restore_latest(like)
+    assert meta == {"arch": "test", "step": 3}
+    for a, b in ((got["params"]["w"], tree["params"]["w"]),
+                 (got["params"]["b"][0], tree["params"]["b"][0]),
+                 (got["opt_state"]["t"], tree["opt_state"]["t"])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        if a.dtype == torch.bfloat16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b)

@@ -64,7 +64,9 @@ def _entry_points():
     from repro_torch.core import make_code
     from repro_torch.models import api
     from repro_torch.optim import nag
-    from repro_torch.serving import CodedServer, make_coded_forward
+    from repro_torch.serving import (BatchedEngine, CodedServer,
+                                     build_serve_artifacts,
+                                     make_coded_forward)
     from repro_torch.train import Trainer, make_coded_train_step
     cfg, code = get_config("logistic-paper"), make_code(4, 3, 1, 2)
     lm = get_config("qwen3-1.7b").reduced()
@@ -79,6 +81,10 @@ def _entry_points():
         "models.api.init(dense)": lambda: api.init(lm),
         "CodedServer": lambda: CodedServer(lm, code, {}),
         "make_coded_forward": lambda: make_coded_forward(lm, code),
+        "BatchedEngine": lambda: BatchedEngine(lm, {}, batch=2, seq_len=8),
+        "build_serve_artifacts":
+            lambda: build_serve_artifacts(lm, batch=2, seq_len=8),
+        "models.api.init_cache": lambda: api.init_cache(lm, 2, 8),
     }
 
 
@@ -86,7 +92,9 @@ def _entry_points():
                                   "make_codec", "SchemeSpec.make_codec",
                                   "make_local_comm", "models.api.init",
                                   "models.api.init(dense)", "CodedServer",
-                                  "make_coded_forward"])
+                                  "make_coded_forward", "BatchedEngine",
+                                  "build_serve_artifacts",
+                                  "models.api.init_cache"])
 def test_default_device_is_the_card_and_never_a_quiet_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")

@@ -277,15 +277,26 @@ def test_trainer_run_and_loss_decreases():
 
 @pytest.mark.parametrize("kw", ["autotune", "checkpoint_dir", "pipelined",
                                 "schedule", "injector"])
-def test_trainer_refuses_what_is_not_ported_yet(kw):
+def test_trainer_refuses_what_is_not_ported_yet(kw, tmp_path):
     """Unported levers and the reference's deprecated keywords (the
-    pipelined step itself is ``spec=SchemeSpec(pipelined=True)``)."""
+    pipelined step itself is ``spec=SchemeSpec(pipelined=True)``).
+    Checkpointing is ported: ``checkpoint_dir`` takes a directory and
+    refuses a value that is no path."""
     _, tcfg = _cfgs()
-    msg = r"pipelined.*SchemeSpec\(pipelined=True\)" if kw == "pipelined" \
-        else kw
-    with pytest.raises(NotImplementedError, match=msg):
-        TTrainer(tcfg, tcore.make_code(N, D_, S_, M_),
-                 toptim.get_optimizer("nag", 1e-3), device="cpu", **{kw: 1})
+    code = tcore.make_code(N, D_, S_, M_)
+    if kw == "checkpoint_dir":
+        tr = TTrainer(tcfg, code, toptim.get_optimizer("nag", 1e-3),
+                      device="cpu", checkpoint_dir=str(tmp_path))
+        assert tr._ckpt.dir == tmp_path and tr._ckpt.steps() == []
+        with pytest.raises(TypeError):
+            TTrainer(tcfg, code, toptim.get_optimizer("nag", 1e-3),
+                     device="cpu", checkpoint_dir=1)
+    else:
+        msg = r"pipelined.*SchemeSpec\(pipelined=True\)" \
+            if kw == "pipelined" else kw
+        with pytest.raises(NotImplementedError, match=msg):
+            TTrainer(tcfg, code, toptim.get_optimizer("nag", 1e-3),
+                     device="cpu", **{kw: 1})
     with pytest.raises(TypeError):
         TTrainer(tcfg, tcore.make_code(N, D_, S_, M_),
                  toptim.get_optimizer("nag", 1e-3), device="cpu", bogus=1)
