@@ -49,6 +49,20 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the synchronous step bitwise (fused and not), a steady call
            against the synchronous update of the batch it retires, and the
            pipelined run against the plain backend
+  autotune_train
+           ``Trainer(autotune=AutotunePolicy(...))`` on ``logistic-paper`` at
+           full width from code (8, 4, 2, 2), NAG, a drifting timed straggler
+           source (the reference's drift of tests/test_tune.py), exact and
+           FRC plans: 16 steps counted from 0, each step's launches by kernel
+           and kernel path filed under the scheme it ran under, at least one
+           switch, every scheme that codes beta launching the 2D encode and
+           decode; a plain-backend twin replaying the same swaps at the same
+           steps (beta within rtol 1e-4); swaps back build nothing; a
+           pipelined fused trainer swapped with an update in flight (the swap
+           launches one ``coded_decode_apply``: the drain under the outgoing
+           code), against its plain twin; one step each under a forced
+           rotation, block, hetero and expander plan; the coding kernels
+           timed at every coded scheme's own shapes, vector and scalar path
   serve    the serving path: ``CodedServer`` on ``qwen3-1.7b`` at full width
            (28 layers, d_model 2048, random weights from a seed, f32) with
            code (4, 3, 1, 2), one request per subset and 4096-token prompts:
@@ -57,6 +71,15 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the decoded logits against the uncoded forward of the same
            prompts, the hedge (a straggler's payload never reaches the
            output bits), and no failed requests
+  autotune_serve
+           ``CodedServer(autotune=ServingPolicy(...))`` on the serve phase's
+           weights, 4096-token prompts, from code (4, 3, 1, 2) under a
+           drifting timed source: 10 batches counted from 0, each batch's
+           flash launches (n * d * 28 of its scheme) and coding launches by
+           path filed under its scheme, at least one change of code; each
+           scheme's first batch against the uncoded forward, and one traced
+           batch a scheme for its device idle share; the coding kernels
+           timed at each scheme's shapes, vector and scalar path
   checkpoint
            (a) ``Trainer`` on ``logistic-paper`` at full width, code (8, 4,
            2, 2), NAG, random stragglers, a snapshot every 2 steps into a
@@ -121,6 +144,7 @@ prints no result.  The last line of standard output is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -262,12 +286,12 @@ def _offset_copy(x):
     return view
 
 
-def _serve_codec_shapes():
+def _serve_codec_shapes(code_nsdm=SERVE_CODE):
     """The serving path's encode ``G (1, q, m)`` and decode ``(n, L, m)``:
     one request a subset, its ``(vocab,)`` logits folded m-fold, and the
     wire of k blocks of q rounded up to lcm(WIRE_ALIGN, n), as
     ``make_coded_forward`` lays them out."""
-    code = make_code(*SERVE_CODE)
+    code = make_code(*code_nsdm)
     q = -(-get_config("qwen3-1.7b").vocab // code.m)
     align = math.lcm(coding.WIRE_ALIGN, code.n)
     L = -(-(code.num_subsets * q) // align) * align
@@ -961,8 +985,10 @@ def _paths_since(before, prefix):
             for p in ("vector", "scalar")}
 
 
-def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
-    """ms / plain_ms / library_ms / bound_ms of one kernel at one shape.
+def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False):
+    """ms / plain_ms / library_ms / bound_ms of one kernel at one shape
+    (``scalar``: every operand one element off an aligned base, the coding
+    kernels' scalar path).
 
     ``bound_ms`` takes the bytes from device memory, so the three times are
     read on inputs that are not in the L2 cache: each call gets the next of
@@ -973,6 +999,11 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32):
     gen = torch.Generator().manual_seed(1)
     make, kernel, plain, library, nbytes, flops = _operands(
         kind, shape, m, dtype, out_dtype, gen)
+    if scalar:
+        aligned = make
+
+        def make():
+            return tuple(_offset_copy(x) for x in aligned())
     first = make()
     per_copy = sum(x.numel() * x.element_size() for x in first
                    if isinstance(x, torch.Tensor))
@@ -1735,6 +1766,438 @@ def run_serve_path(args):
     return counts, len(results), params
 
 
+# ------------------------------------------------------------ autotune paths
+AT_CODE = (8, 4, 2, 2)         # (n, d, s, m) the autotuned trainer starts at
+AT_STEPS = 16                  # steps of the autotuned logistic-paper run
+AT_PIPE_STEPS = 3              # pipelined steps before and after the swap
+AT_SERVE_CODE = (4, 3, 1, 2)   # the autotuned server's first scheme
+AT_SERVE_BATCHES = 10          # batches the autotuned server serves
+# the drift of the reference's trainer tests (tests/test_tune.py:406-407):
+# communication-heavy (t2 = 16 s) before the switch, compute-heavy after
+AT_DRIFT = (dict(lambda1=0.5, lambda2=0.2, t1=0.5, t2=16.0),
+            dict(lambda1=0.5, lambda2=0.2, t1=16.0, t2=0.5))
+
+
+def _drift(n, at, seed):
+    """A timed straggler source at ``n`` workers whose constants switch from
+    ``AT_DRIFT[0]`` to ``AT_DRIFT[1]`` at step ``at``."""
+    from repro_torch.core.runtime_model import RuntimeParams
+    from repro_torch.tune import DriftingSampler
+    pa, pb = (RuntimeParams(n=n, **kw) for kw in AT_DRIFT)
+    return DriftingSampler([(0, pa), (at, pb)], seed=seed)
+
+
+def _plan_label(plan):
+    return (f"{plan.family}({plan.d},{plan.s},{plan.m})"
+            + (",pipelined" if plan.pipelined else ""))
+
+
+def _launch_delta(c0, c1):
+    return {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+
+
+def _path_delta(p0, p1):
+    out = {}
+    for k in p1:
+        d = {p: p1[k][p] - p0[k][p] for p in ("vector", "scalar")}
+        if d["vector"] or d["scalar"]:
+            out[k] = d
+    return out
+
+
+def _add_into(total, delta):
+    for k, v in delta.items():
+        if isinstance(v, dict):
+            _add_into(total.setdefault(k, {}), v)
+        else:
+            total[k] = total.get(k, 0) + v
+
+
+def _coded_launches(launches):
+    return sum(v for k, v in launches.items() if k.startswith("coded_"))
+
+
+def _record_scheme(schemes, label, launches, paths, **row):
+    """Fold one step's (or batch's) launches and times into its scheme."""
+    sc = schemes.setdefault(label, {"steps": 0, "launches": {},
+                                    "launches_by_kernel_path": {}})
+    sc["steps"] += 1
+    _add_into(sc["launches"], launches)
+    _add_into(sc["launches_by_kernel_path"], paths)
+    for k, v in row.items():
+        sc.setdefault(k, []).append(v)
+
+
+def _coding_times(enc_shape, dec_shape):
+    """The 2D encode and decode timed at one scheme's own shapes, on their
+    vector path and, one element off an aligned base, on their scalar
+    path (``dec_shape`` is ``(n, L, m)``)."""
+    n, L, m = dec_shape
+    row = {"m": m}
+    for kname, kind, shape, mm in (("encode", "encode", enc_shape, None),
+                                   ("decode", "decode", (n, L), m)):
+        for path in ("vector", "scalar"):
+            meas = measure(kind, shape, m=mm, scalar=path == "scalar")
+            if meas["path"] != [path]:
+                fail(f"{kname} {shape} took the {meas['path']} path, "
+                     f"timed as {path}")
+            row[kname] = {**row.get(kname, {}), "shape": meas["shape"],
+                          "bound_ms": meas["bound_ms"],
+                          "plain_ms": meas["plain_ms"],
+                          f"{path}_ms": meas["ms"],
+                          f"{path}_ms_per_launch_run":
+                              meas["ms_per_launch_run"]}
+    return row
+
+
+def _forced_plan(family, d, s, m, n, **kw):
+    from repro_torch.tune import Plan
+    return Plan(family=family, d=d, s=s, m=m, k=kw.pop("k", n),
+                loads=kw.pop("loads", (d,) * n), schedule="gather",
+                packed=True, predicted_wait_s=0.0, predicted_step_s=0.0,
+                predicted_total_s=0.0, **kw)
+
+
+def run_autotune_train(args):
+    """The autotuned ``Trainer`` on logistic-paper at full width.
+
+    (a) counted window: launch counts set to 0 just before a synchronous
+    NAG trainer with ``autotune=AutotunePolicy(...)`` (exact and FRC plans)
+    under a drifting timed source takes 16 steps; each step's launches by
+    kernel and kernel path go to the scheme it ran under.  Outside it: a
+    twin on the plain backend replays the same swaps at the same steps
+    (beta within rtol 1e-4), and a swap back to the first scheme builds no
+    artifact.  (b) a pipelined fused trainer swaps while an update is in
+    flight: the swap itself launches one ``coded_decode_apply`` (the drain
+    under the outgoing code), and the run agrees with its plain twin.
+    (c) one step under each of a forced rotation, block, hetero and
+    expander plan.  Then the coding kernels are timed at every coded
+    scheme's own shapes, on both kernel paths."""
+    from repro_torch.core import plan_hetero
+    from repro_torch.tune import AutotunePolicy
+    cfg = get_config("logistic-paper")
+    n = AT_CODE[0]
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in
+             make_synthetic_batch(rng, cfg, args.global_batch).items()}
+    policy = AutotunePolicy(interval=3, window=6, min_samples=3,
+                            schedules=("gather",), npts=4000,
+                            approx_options=("frc",), max_err=3.0)
+    lr = 1e-6
+
+    def trainer(backend, autotune=None, pipelined=False):
+        opt = sgd_momentum(PIPE_LR, 0.9) if pipelined else nag(lr)
+        spec = coding.SchemeSpec(backend=backend, pipelined=pipelined,
+                                 fuse_apply=pipelined or None)
+        return Trainer(cfg, make_code(*AT_CODE), optimizer=opt, spec=spec,
+                       straggler_source=_drift(n, 6, 3), autotune=autotune,
+                       seed=0)
+
+    # ---- (a) the counted path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tr = trainer("auto", policy)
+    if tr.arts.codec.backend.name != "hopper":
+        fail(f"autotune: backend {tr.arts.codec.backend.name!r}, not the kernels")
+    first_plan = tr._current_plan()
+    applied, replan_ms = [], []
+    apply_plan, replan = tr._apply_plan, tr._tuner.maybe_replan
+
+    def recording_apply(plan):
+        applied.append((tr._step_count, plan))
+        apply_plan(plan)
+
+    def timed_replan(*a, **kw):
+        events = len(tr._tuner.events)
+        t0 = time.perf_counter()
+        out = replan(*a, **kw)
+        if len(tr._tuner.events) != events:
+            replan_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr._apply_plan, tr._tuner.maybe_replan = recording_apply, timed_replan
+    schemes, logs = {}, []
+    for _ in range(AT_STEPS):
+        label = _plan_label(tr._current_plan())
+        frac = tr.arts.coded_fraction
+        c0, p0 = ops.launch_counts(), ops.path_counts()
+        t0 = time.perf_counter()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        logs.append(m)
+        _record_scheme(schemes, label, _launch_delta(c0, ops.launch_counts()),
+                       _path_delta(p0, ops.path_counts()),
+                       step_ms=m["step_time_s"] * 1e3, wall_ms=wall,
+                       coded_fraction=frac)
+    counts = ops.launch_counts()
+    del tr._apply_plan, tr._tuner.maybe_replan      # the methods again
+    label_a = "logistic-paper autotuned Trainer.step"
+    paths = _note_paths(label_a, require_vector=False)
+    peak = torch.cuda.max_memory_allocated()
+    switched = [e for e in tr.autotune_events if e["switched"]]
+    if not switched:
+        fail(f"autotune_train: the tuner never switched: {tr.autotune_events}")
+    if len(tr.telemetry) != AT_STEPS or tr.cached_schemes < 2:
+        fail(f"autotune_train: {len(tr.telemetry)} records and "
+             f"{tr.cached_schemes} cached schemes after {AT_STEPS} steps")
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in logs):
+        fail(f"autotune_train: non-finite metrics {logs}")
+    if not _coded_launches(counts):
+        fail("autotune_train: no coding kernel was launched")
+    for label, sc in schemes.items():
+        # l = 343474 = 2 * 171737: only m in (1, 2) groups beta; for any
+        # other m the leaf rides the straggler-aware weighted sum uncoded
+        coded = sc["coded_fraction"][0] == 1.0
+        enc, dec = (sc["launches"].get("coded_encode_2d", 0),
+                    sc["launches"].get("coded_decode_2d", 0))
+        if coded and not (enc and dec):
+            fail(f"autotune_train: scheme {label} codes beta but launched "
+                 f"encode {enc} / decode {dec} times")
+        if not coded and _coded_launches(sc["launches"]):
+            fail(f"autotune_train: scheme {label} does not code beta but "
+                 f"launched {sc['launches']}")
+    # ---- outside the window: the plain-backend twin replays the swaps
+    twin = trainer("ref")
+    for t in range(AT_STEPS):
+        twin.step(batch)
+        for at, plan in applied:
+            if at == t:
+                twin._apply_plan(plan)
+    torch.cuda.synchronize()
+    b_k, b_p = tr.params["beta"], twin.params["beta"]
+    atol = 1e-4 * b_p.abs().max().item()
+    beta_err = _rel_err(b_k, b_p)
+    if twin._scheme_sig != tr._scheme_sig or \
+            not torch.allclose(b_k, b_p, rtol=1e-4, atol=atol):
+        fail(f"autotune_train: beta against the plain twin {beta_err:.3e} "
+             f"relative (schemes {tr._scheme_sig} / {twin._scheme_sig})")
+    # a return to the first scheme (and a round trip more) builds nothing
+    # once the first scheme has artifacts in the trainer's partial mode
+    last_plan = tr._current_plan()
+    cached0 = tr.cached_schemes
+    tr._apply_plan(first_plan)
+    cached1 = tr.cached_schemes
+    tr._apply_plan(last_plan)
+    tr._apply_plan(first_plan)
+    if tr.cached_schemes != cached1 or (cached1 != cached0 and not tr.partial):
+        fail(f"autotune_train: swaps back rebuilt artifacts ({cached0} -> "
+             f"{cached1} -> {tr.cached_schemes})")
+    run_a_s = time.perf_counter() - t_phase
+
+    # ---- (b) a pipelined swap while an update is in flight
+    plan_b = _forced_plan("uniform", 3, 1, 2, n, pipelined=True)
+    pipe = {}
+    for backend in ("auto", "ref"):
+        tp = trainer(backend, pipelined=True)
+        plog = [tp.step(batch) for _ in range(AT_PIPE_STEPS)]
+        torch.cuda.synchronize()
+        c0 = ops.launch_counts()
+        if not tp._driver.in_flight:
+            fail("autotune_train (b): nothing in flight before the swap")
+        tp._apply_plan(plan_b)
+        torch.cuda.synchronize()
+        swap_launches = _launch_delta(c0, ops.launch_counts())
+        plog += [tp.step(batch) for _ in range(AT_PIPE_STEPS)]
+        plog.append(tp.drain())
+        torch.cuda.synchronize()
+        pipe[backend] = (tp, plog, swap_launches)
+    tp, plog, swap_launches = pipe["auto"]
+    if swap_launches != {"coded_decode_apply": 1}:
+        fail(f"autotune_train (b): the swap launched {swap_launches}; the "
+             f"drain under the outgoing code should launch one "
+             f"coded_decode_apply")
+    if pipe["ref"][2]:
+        fail(f"autotune_train (b): the plain twin launched {pipe['ref'][2]}")
+    fills = [i for i, m in enumerate(plog) if np.isnan(m["loss"])]
+    if fills != [0, AT_PIPE_STEPS]:
+        fail(f"autotune_train (b): fills at steps {fills}, expected 0 and "
+             f"{AT_PIPE_STEPS}")
+    pb_k, pb_p = tp.params["beta"], pipe["ref"][0].params["beta"]
+    pipe_err = _rel_err(pb_k, pb_p)
+    if not torch.allclose(pb_k, pb_p, rtol=1e-4,
+                          atol=1e-4 * pb_p.abs().max().item()):
+        fail(f"autotune_train (b): beta against the plain twin "
+             f"{pipe_err:.3e} relative")
+
+    # ---- (c) one step under each forced family
+    hetero_loads = plan_hetero((1.0,) * n, s=1, m=2, k=2 * n).loads
+    forced = [("rotation", _forced_plan("rotation", 3, 1, 2, n)),
+              ("block", _forced_plan("block", 2, 1, 1, n, n0=2)),
+              ("hetero", _forced_plan("hetero", max(hetero_loads), 1, 2, n,
+                                      k=2 * n, loads=hetero_loads)),
+              ("expander", _forced_plan("expander", 2, 1, 1, n))]
+    tf = trainer("auto")
+    families = {}
+    for fam, plan in forced:
+        tf._apply_plan(plan)
+        c0, p0 = ops.launch_counts(), ops.path_counts()
+        t0 = time.perf_counter()
+        m = tf.step(batch)
+        torch.cuda.synchronize()
+        launches = _launch_delta(c0, ops.launch_counts())
+        families[fam] = {"code": [tf.code.n, tf.code.d, tf.code.s, tf.code.m],
+                         "k": tf.code.num_subsets, "partial": tf.partial,
+                         "loss": m["loss"], "step_ms": m["step_time_s"] * 1e3,
+                         "wall_ms": (time.perf_counter() - t0) * 1e3,
+                         "launches": launches,
+                         "launches_by_kernel_path": _path_delta(
+                             p0, ops.path_counts())}
+        if not np.isfinite(m["loss"]) or not _coded_launches(launches):
+            fail(f"autotune_train (c): {fam}: {families[fam]}")
+
+    # ---- the coding kernels at every coded scheme's own shapes
+    shapes = set()
+    for arts in list(tr._arts_cache.values()) + list(tf._arts_cache.values()):
+        if arts.coded_fraction == 1.0 and arts.pack_plan is not None:
+            mm = arts.codec.code.m
+            shapes.add((mm, cfg.d_model // mm, arts.pack_plan.buckets[0].size))
+    at_shapes = [_coding_times((1, V, mm), (n, L, mm))
+                 for mm, V, L in sorted(shapes)]
+    say(phase="autotune_train", model=cfg.name, l=cfg.d_model,
+        start_code=list(AT_CODE), global_batch=args.global_batch,
+        policy={"interval": 3, "window": 6, "min_samples": 3,
+                "schedules": ["gather"], "npts": 4000,
+                "approx_options": ["frc"], "max_err": 3.0},
+        drift={"at_step": 6, "params": AT_DRIFT, "seed": 3},
+        switches=[{"step": e["step"], "to": e["best"]} for e in switched],
+        applied=[[at, _plan_label(pl)] for at, pl in applied],
+        replan_host_ms=replan_ms, events=len(tr.autotune_events),
+        schemes={k: {**v, "step_ms_median": statistics.median(v["step_ms"]),
+                     "coded_fraction": v["coded_fraction"][0]}
+                 for k, v in schemes.items()},
+        losses=[m["loss"] for m in logs],
+        modeled_wait_s=[m["modeled_wait_s"] for m in logs],
+        cached_schemes=cached1, launches=counts, launches_by_kernel_path=paths,
+        peak_memory_bytes=peak, beta_rel_err_vs_plain_twin=beta_err,
+        pipelined_swap={"plan": _plan_label(plan_b),
+                        "swap_launches": swap_launches,
+                        "losses": [m["loss"] for m in plog],
+                        "beta_rel_err_vs_plain_twin": pipe_err},
+        forced_families=families, coding_kernels_at_scheme_shapes=at_shapes,
+        seconds_counted_run_and_twin=run_a_s,
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return counts
+
+
+def run_autotune_serve(args, params):
+    """The autotuned ``CodedServer`` on qwen3-1.7b at full width (the serve
+    phase's weights), 4096-token prompts, from code (4, 3, 1, 2) under a
+    drifting timed source.
+
+    Counted window: the launch counts are set to 0 just before the 10
+    batches are submitted and read just after the last is stepped; each
+    batch's launches go to the scheme it was served under.  Outside it:
+    the first batch under every scheme against the uncoded forward of its
+    prompts, one traced batch a scheme for its device idle share, and the
+    coding kernels at each scheme's shapes on both kernel paths."""
+    from repro_torch.tune import PoissonArrivals, ServingPolicy
+    cfg = get_config("qwen3-1.7b")
+    n = AT_SERVE_CODE[0]
+    t_phase = time.perf_counter()
+    policy = ServingPolicy(arrivals=PoissonArrivals(rate_rps=0.01),
+                           interval=3, window=6, min_samples=3,
+                           schedules=("gather",), wait_draws=200,
+                           n_requests=800)
+    srv = CodedServer(cfg, make_code(*AT_SERVE_CODE), params,
+                      batch_per_subset=1, seq_len=SERVE_SEQ,
+                      straggler_source=_drift(n, 4, 3), autotune=policy,
+                      device=DEV)
+    k = srv.batch_requests
+    prompts = np.random.default_rng(SEED + 21).integers(
+        0, cfg.vocab, (AT_SERVE_BATCHES * k, SERVE_SEQ), dtype=np.int32)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    flash_attn.PLAIN_CALLS["flash_attention"] = 0
+    for row in prompts:
+        srv.submit({"tokens": row})
+    schemes, firsts, results = {}, {}, []
+    while True:
+        code = srv.code
+        label = f"uniform({code.d},{code.s},{code.m})"
+        torch.cuda.reset_peak_memory_stats()
+        c0, p0 = ops.launch_counts(), ops.path_counts()
+        res = srv.step()
+        if res is None:
+            break
+        torch.cuda.synchronize()
+        launches = _launch_delta(c0, ops.launch_counts())
+        want = code.n * code.d * cfg.n_layers
+        if launches.get("flash_attention", 0) != want:
+            fail(f"autotune_serve: batch {len(results)} under {label} "
+                 f"launched flash {launches.get('flash_attention', 0)} "
+                 f"times, expected {want}")
+        if res.outputs.shape != (k, cfg.vocab) or \
+                not np.isfinite(res.outputs).all() or res.failed_rows:
+            fail(f"autotune_serve: batch {len(results)}: outputs "
+                 f"{res.outputs.shape}, failed rows {res.failed_rows}")
+        _record_scheme(schemes, label, launches,
+                       _path_delta(p0, ops.path_counts()),
+                       wall_ms=res.wall_s * 1e3,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+        firsts.setdefault(label, (len(results), res.outputs,
+                                  [r.req_id - 1 for r in res.requests],
+                                  (code.d, code.s, code.m)))
+        results.append(res)
+    counts = ops.launch_counts()
+    label_s = "qwen3-1.7b autotuned CodedServer.step"
+    paths = _note_paths(label_s, require_vector=False)
+    plain_calls = flash_attn.PLAIN_CALLS["flash_attention"]
+    switched = [e for e in srv._tuner.events if e["switched"]]
+    # the serving tuner starts with no plan of its own, so its first adopted
+    # plan counts as a switch even where it is the server's code: require a
+    # change of code
+    if len(results) != AT_SERVE_BATCHES or plain_calls or len(firsts) < 2:
+        fail(f"autotune_serve: {len(results)} batches, {plain_calls} plain "
+             f"flash calls, schemes served {list(firsts)}")
+    ids = [r.req_id for res in results for r in res.requests]
+    if ids != list(range(1, len(prompts) + 1)):
+        fail(f"autotune_serve: requests served out of order: {ids}")
+    # ---- outside the window: each scheme's first batch against the
+    # uncoded forward of its prompts, then one traced batch a scheme
+    fwd = model_api.make_forward(cfg)
+    for label, (b, out, rows, dsm) in firsts.items():
+        with torch.no_grad():
+            direct = fwd(params, {"tokens": torch.from_numpy(
+                prompts[rows]).to(DEV)}).cpu().numpy()
+        scale = float(np.abs(direct).max())
+        err = float(np.abs(out - direct).max())
+        schemes[label].update(first_batch=b, max_abs_err_vs_uncoded=err,
+                              max_abs_logit=scale)
+        if err > SERVE_REL_TOL * max(1.0, scale):
+            fail(f"autotune_serve: {label}, batch {b}: decoded logits "
+                 f"{err:.3e} from the uncoded forward (max |logit| "
+                 f"{scale:.3e}, tolerance {SERVE_REL_TOL} of it)")
+    for label, (b, _, rows, (d, s_, mm)) in firsts.items():
+        srv._apply_plan(dataclasses.replace(srv._tuner.current, d=d, s=s_,
+                                            m=mm, loads=(d,) * n))
+        batch_rows = {"tokens": prompts[rows]}
+        schemes[label]["device_idle_share"] = profile_steps(
+            lambda: srv.serve_batch(batch_rows, stragglers=()),
+            statistics.median(schemes[label]["wall_ms"]),
+            f"autotuned serve batch {label}", steps=1)
+    at_shapes = {label: _coding_times(*_serve_codec_shapes((n,) + dsm))
+                 for label, (_, _, _, dsm) in firsts.items()}
+    say(phase="autotune_serve", model=cfg.name, start_code=list(AT_SERVE_CODE),
+        seq_len=SERVE_SEQ, batches=len(results),
+        policy={"rate_rps": 0.01, "interval": 3, "window": 6,
+                "min_samples": 3, "schedules": ["gather"], "wait_draws": 200,
+                "n_requests": 800},
+        drift={"at_batch": 4, "params": AT_DRIFT, "seed": 3},
+        switches=[{"batch": e["step"], "to": e["best"]} for e in switched],
+        stragglers=[list(r.stragglers) for r in results],
+        schemes={k: {**v, "wall_ms_median": statistics.median(v["wall_ms"]),
+                     "flash_launches_per_batch":
+                         v["launches"].get("flash_attention", 0) / v["steps"]}
+                 for k, v in schemes.items()},
+        launches=counts, launches_by_kernel_path=paths,
+        plain_flash_calls=plain_calls, coding_kernels_at_scheme_shapes=at_shapes,
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return counts
+
+
 class materialized_attention:
     """Within it, the dense LM's attention is the materialized f32 softmax
     at every length (the reference's branch up to 2048 tokens), never the
@@ -2247,8 +2710,11 @@ def main():
     check_packed_per_leaf_small()
 
     counts = run_main_path(args)
+    counts["logistic-paper autotuned Trainer.step"] = run_autotune_train(args)
     serve_path = "qwen3-1.7b CodedServer.step"
     counts[serve_path], n_batches, params = run_serve_path(args)
+    counts["qwen3-1.7b autotuned CodedServer.step"] = \
+        run_autotune_serve(args, params)
     gen_path = "qwen3-1.7b BatchedEngine.generate"
     counts[gen_path] = run_generate_path(args, params)
     del params

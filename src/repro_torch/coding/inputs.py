@@ -87,10 +87,9 @@ def admit_code(code: "GradCode", n_data: int | None = None,
 
     Validates the ``GradCode`` duck contract the train step relies on —
     coefficient/placement shape consistency and a worker-count match when
-    ``n_data`` is given.  ``max_cond`` (a ceiling on the construction's
-    certified conditioning) needs the ``stable`` module, which is not
-    ported yet: passing it raises ``ImportError`` until it is.  Returns
-    ``code`` unchanged on success.
+    ``n_data`` is given.  ``max_cond`` is a ceiling on the construction's
+    certified decode conditioning (``core.stable.certified_cond_of``).
+    Returns ``code`` unchanged on success.
     """
     n, d, m = code.n, code.d, code.m
     C = np.asarray(code.C)

@@ -10,9 +10,10 @@
   replicas (the decode is bit-wise independent of straggler payloads), and
   ``partial`` specs serve past-``s`` failures under the ``ServeSLO`` error
   bound.  The server and ``make_coded_train_step`` construct from one
-  ``repro_torch.coding.SchemeSpec``.
-
-Not ported yet: the serving auto-tuner.
+  ``repro_torch.coding.SchemeSpec``.  With ``autotune=ServingPolicy(...)``
+  and a timed straggler source the server re-plans its uniform ``(d, s,
+  m)`` by modeled p99 under a Poisson arrival process and swaps codes
+  through a per-scheme artifact cache.
 """
 from .batcher import Request, RequestBatcher
 from .coded import ForwardArtifacts, failed_request_rows, make_coded_forward

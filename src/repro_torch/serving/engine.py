@@ -9,10 +9,11 @@ paper's scheme applied to inference: batched forward passes ride the coded
 replica layout of ``repro_torch.serving.coded``; the engine decodes from
 the fastest ``n - s`` replicas (hedging: straggler payloads never reach the
 output bits) and, with a ``partial`` spec, serves past-``s`` failures under
-a certified error bound.
-
-Not ported yet: the serving auto-tuner (``CodedServer(autotune=)``, refused
-with ``NotImplementedError``).
+a certified error bound.  With ``autotune=ServingPolicy(...)`` and a timed
+straggler source, every served batch feeds a ``StepRecord`` to a
+``ServingAutotuner``, which re-ranks the uniform (d, s, m) x schedule
+family by modeled p99 under the policy's arrival process; an adopted plan
+swaps code and schedule through the per-scheme artifact cache.
 """
 from __future__ import annotations
 
@@ -26,9 +27,12 @@ import torch
 from .. import coding
 from .._device import resolve_device
 from ..comm import Comm
+from ..core import make_code
 from ..data import CodedBatcher
 from ..models import api as model_api
+from ..tune.arrivals import ServingAutotuner
 from ..tune.stragglers import as_straggler_source
+from ..tune.telemetry import record_from_times
 from .batcher import Request, RequestBatcher
 from .coded import ForwardArtifacts, failed_request_rows, make_coded_forward
 
@@ -167,6 +171,13 @@ class CodedServer:
     the reference takes a mesh, the port takes ``device`` (default: the
     card; raises when there is none) and optionally the replica group
     ``comm``.  ``params`` must lie on ``device``.
+
+    With ``autotune=`` a ``repro_torch.tune.ServingPolicy`` (and a timed
+    straggler source) each served batch records its per-replica timings and
+    measured wall to a ``ServingAutotuner``; an adopted plan swaps the code
+    and schedule within the uniform family (``k = n`` is pinned, so the
+    engine batch ``B = k * b`` never changes), and each scheme's artifacts
+    are built once.
     """
 
     def __init__(self, cfg, code, params, *,
@@ -181,10 +192,6 @@ class CodedServer:
                  comm: Comm | None = None):
         """Bind model, code, device and scheme; artifacts are built at the
         first served batch."""
-        if autotune is not None:
-            raise NotImplementedError(
-                "CodedServer(autotune=...): the serving auto-tuner (tune/) "
-                "is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = params
@@ -196,11 +203,18 @@ class CodedServer:
         self.code = code
         self.comm = comm
         self._source = as_straggler_source(straggler_source)
+        if autotune is not None and not self._source.provides_times:
+            raise ValueError(
+                "autotune needs per-worker timings: pass a timed "
+                "straggler_source= (e.g. a repro_torch.tune."
+                "ShiftedExpSampler or a replica heartbeat feed)")
         k = getattr(code, "num_subsets", code.n)
         self.batch_requests = k * self.b
         self.batcher = RequestBatcher(self.batch_requests)
         self._arts: dict[tuple, ForwardArtifacts] = {}
         self._placer = CodedBatcher(code)
+        self._tuner = (ServingAutotuner(autotune, self.batch_requests)
+                       if autotune is not None else None)
         self._served = 0
         self._next_id = 0
 
@@ -221,6 +235,13 @@ class CodedServer:
                 seq_len=self.seq_len, window=self.window, device=self.device,
                 comm=self.comm)
         return self._arts[key]
+
+    def _apply_plan(self, plan) -> None:
+        """Adopt a ranked serve plan: swap code + schedule, keep B fixed."""
+        n = self.code.n
+        self.code = make_code(n, plan.d, plan.s, plan.m)
+        self.spec = self.spec.replace(schedule=plan.schedule)
+        self._placer = CodedBatcher(self.code)
 
     # ---- request-queue surface -----------------------------------------
     def submit(self, payload: dict, arrival_s: float = 0.0) -> int:
@@ -247,13 +268,15 @@ class CodedServer:
         patterns through it); ``valid`` trims padding rows from the
         returned outputs.  The batch is moved to the device first and
         placed there, so the d-fold redundant layout never crosses the host
-        link.
+        link.  Per-batch telemetry feeds the serving auto-tuner when one is
+        configured.
         """
         arts = self.artifacts
         code = arts.codec.code
+        times = None
         if stragglers is None:
             draw = self._source.draw(self._served, code).restrict(code.n)
-            stragglers = list(draw.stragglers)
+            stragglers, times = list(draw.stragglers), draw.times
         else:
             stragglers = list(stragglers)
         inp = arts.step_inputs(stragglers)
@@ -279,6 +302,13 @@ class CodedServer:
             err_bound = 0.0
         failed = tuple(failed_request_rows(code, stragglers, self.b))
         self._served += 1
+        if self._tuner is not None and times is not None:
+            self._tuner.record(record_from_times(
+                self._served, code, self.spec.schedule, self.spec.packed,
+                times, n_drop=len(stragglers), measured_step_s=wall))
+            plan = self._tuner.maybe_replan(self._served)
+            if plan is not None:
+                self._apply_plan(plan)
         nvalid = self.batch_requests if valid is None else int(valid)
         return BatchResult(
             outputs=out[:nvalid].cpu().numpy(),

@@ -248,10 +248,20 @@ def test_restore_gives_like_device_and_type(tmp_path):
 
 
 def test_trainer_refuses_only_the_tuner():
+    """The auto-tuner is ported; an untimed straggler source is refused as
+    the reference refuses it, and a timed one is taken."""
+    from repro_torch.core.runtime_model import RuntimeParams
+    from repro_torch.tune import AutotunePolicy, ShiftedExpSampler
     cfg = dataclasses.replace(get_config("logistic-paper"), d_model=32)
-    with pytest.raises(NotImplementedError, match="auto-tuner"):
+    with pytest.raises(ValueError, match="autotune needs per-worker timings"):
         Trainer(cfg, make_code(4, 3, 1, 2), get_optimizer("sgd", 1e-2),
-                device="cpu", autotune=object())
+                device="cpu", autotune=AutotunePolicy())
+    timed = ShiftedExpSampler(RuntimeParams(n=4, lambda1=1.0, lambda2=1.0,
+                                            t1=1.0, t2=1.0))
+    tr = Trainer(cfg, make_code(4, 3, 1, 2), get_optimizer("sgd", 1e-2),
+                 device="cpu", autotune=AutotunePolicy(),
+                 straggler_source=timed)
+    assert tr.autotune_events == [] and len(tr.telemetry) == 0
 
 
 # ------------------------------------------------ against the reference

@@ -29,6 +29,12 @@ def _modules():
 def test_every_module_imports_without_jax_or_the_reference():
     mods = _modules()
     assert len(mods) > 30 and "repro_torch.kernels._build" in mods
+    assert {"repro_torch.core.approx", "repro_torch.core.stable",
+            "repro_torch.core.stability", "repro_torch.core.runtime_model",
+            "repro_torch.bench", "repro_torch.bench.straggler",
+            "repro_torch.tune.estimator", "repro_torch.tune.planner",
+            "repro_torch.tune.policy",
+            "repro_torch.tune.arrivals"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -68,10 +74,21 @@ def _entry_points():
                                      build_serve_artifacts,
                                      make_coded_forward)
     from repro_torch.train import Trainer, make_coded_train_step
+    from repro_torch.core.runtime_model import RuntimeParams
+    from repro_torch.tune import (AutotunePolicy, PoissonArrivals,
+                                  ServingPolicy, ShiftedExpSampler)
     cfg, code = get_config("logistic-paper"), make_code(4, 3, 1, 2)
     lm = get_config("qwen3-1.7b").reduced()
+    timed = ShiftedExpSampler(RuntimeParams(n=4, lambda1=1.0, lambda2=1.0,
+                                            t1=1.0, t2=1.0))
     return {
         "Trainer": lambda: Trainer(cfg, code, nag(1e-3)),
+        "Trainer(autotune)": lambda: Trainer(
+            cfg, code, nag(1e-3), autotune=AutotunePolicy(),
+            straggler_source=timed),
+        "CodedServer(autotune)": lambda: CodedServer(
+            lm, code, {}, straggler_source=timed,
+            autotune=ServingPolicy(arrivals=PoissonArrivals(rate_rps=1.0))),
         "make_coded_train_step":
             lambda: make_coded_train_step(cfg, code, nag(1e-3)),
         "make_codec": lambda: coding.make_codec(code),
@@ -88,7 +105,9 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["Trainer", "make_coded_train_step",
+@pytest.mark.parametrize("name", ["Trainer", "Trainer(autotune)",
+                                  "CodedServer(autotune)",
+                                  "make_coded_train_step",
                                   "make_codec", "SchemeSpec.make_codec",
                                   "make_local_comm", "models.api.init",
                                   "models.api.init(dense)", "CodedServer",

@@ -4,7 +4,7 @@ at 64-token prompts: decoded last-token logits per code, schedule and
 straggler pattern; then, inside the port, the contracts the reference's
 ``tests/test_serving_coded.py`` pins: the hedge's bitwise independence from
 straggler payloads, the partial-recovery certificate and SLO verdict, failed
-request rows, the request queue, and what is not ported yet."""
+request rows, the request queue, and what the server refuses."""
 import functools
 import itertools
 import pathlib
@@ -201,9 +201,12 @@ def test_batcher_is_a_byte_copy_of_the_reference():
 
 
 def test_what_is_not_ported_or_not_a_serving_lever_raises():
+    from repro_torch.tune import PoissonArrivals, ServingPolicy
     code = tmake_code(4, 3, 1, 2)
-    with pytest.raises(NotImplementedError, match="autotune"):
-        _server(code, autotune=object())
+    with pytest.raises(ValueError, match="autotune needs per-worker timings: "
+                                         "pass a timed straggler_source"):
+        _server(code, autotune=ServingPolicy(
+            arrivals=PoissonArrivals(rate_rps=1.0)))
     with pytest.raises(ValueError, match="train-step levers"):
         _server(code, tcoding.SchemeSpec(pipelined=True)).artifacts
     arts = _server(code).artifacts

@@ -278,10 +278,11 @@ def test_trainer_run_and_loss_decreases():
 @pytest.mark.parametrize("kw", ["autotune", "checkpoint_dir", "pipelined",
                                 "schedule", "injector"])
 def test_trainer_refuses_what_is_not_ported_yet(kw, tmp_path):
-    """Unported levers and the reference's deprecated keywords (the
-    pipelined step itself is ``spec=SchemeSpec(pipelined=True)``).
-    Checkpointing is ported: ``checkpoint_dir`` takes a directory and
-    refuses a value that is no path."""
+    """The reference's deprecated keywords (the pipelined step itself is
+    ``spec=SchemeSpec(pipelined=True)``).  Checkpointing is ported:
+    ``checkpoint_dir`` takes a directory and refuses a value that is no
+    path.  The auto-tuner is ported: ``autotune`` refuses an untimed
+    straggler source with the reference's ``ValueError``."""
     _, tcfg = _cfgs()
     code = tcore.make_code(N, D_, S_, M_)
     if kw == "checkpoint_dir":
@@ -291,6 +292,11 @@ def test_trainer_refuses_what_is_not_ported_yet(kw, tmp_path):
         with pytest.raises(TypeError):
             TTrainer(tcfg, code, toptim.get_optimizer("nag", 1e-3),
                      device="cpu", checkpoint_dir=1)
+    elif kw == "autotune":
+        with pytest.raises(ValueError, match="needs per-worker timings: "
+                                             "pass a timed straggler_source"):
+            TTrainer(tcfg, code, toptim.get_optimizer("nag", 1e-3),
+                     device="cpu", autotune=ttune.AutotunePolicy())
     else:
         msg = r"pipelined.*SchemeSpec\(pipelined=True\)" \
             if kw == "pipelined" else kw
