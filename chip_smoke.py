@@ -63,6 +63,27 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            code), against its plain twin; one step each under a forced
            rotation, block, hetero and expander plan; the coding kernels
            timed at every coded scheme's own shapes, vector and scalar path
+  elastic  ``ElasticTrainer`` on ``logistic-paper`` at full width, home code
+           (8, 3, 1, 2), NAG, no stragglers, one batch of 448 rows (splits
+           over 8 and 7 workers), each run counted from 0 and held against a
+           plain-backend twin on the same trace (beta within rtol 1e-4):
+           (a) a leave at step 3 and a join at step 9 walk prewarm 7, the
+           zero-load re-plan (loads 5,5,5,5,4,4,4,0), a resize to 7 and back
+           to 8 (the state bitwise and in place through each resize, nothing
+           built, the home code and its decode weights bitwise at the end);
+           (b) two preemptions at step 3 fail over to partial decode (a
+           finite error bound), then re-plan to s = 3; (c) a pipelined fused
+           trainer re-plans with an update in flight (one
+           ``coded_decode_apply`` in the swap); (d) a tuner plan with
+           ``resize_to = 7`` goes through resize (with checkpoints), and is
+           skipped on a 512-row batch.  Every step's launches by scheme:
+           24 / 40 / 21 / 56 encodes (home, degraded, 7, burst) and one
+           decode, all on the vector path; resize and prewarm walls; the 2D
+           decode timed at both cluster sizes' buckets
+  launch   ``python -m repro_torch.launch.train`` on logistic-paper at full
+           width, code (8, 4, 2, 2), 5 NAG steps, as a subprocess: exit 0, a
+           finite final loss, coded fraction 1.000, the library phase
+           ``build`` made, 160 encodes and 5 decodes on the vector path
   serve    the serving path: ``CodedServer`` on ``qwen3-1.7b`` at full width
            (28 layers, d_model 2048, random weights from a seed, f32) with
            code (4, 3, 1, 2), one request per subset and 4096-token prompts:
@@ -181,8 +202,10 @@ try:
 
     from repro_torch import coding, convert
     from repro_torch.configs import get_config
-    from repro_torch.core import make_code
+    from repro_torch.core import HeteroCode, make_code
     from repro_torch.data import CodedBatcher, make_synthetic_batch
+    from repro_torch.elastic import (ElasticPolicy, ElasticTrainer,
+                                     MembershipTrace)
     from repro_torch.kernels import _build, _launch, flash_attn, ops
     from repro_torch.kernels.coded_decode import (coded_decode,
                                                   coded_decode_apply,
@@ -200,7 +223,7 @@ try:
     from repro_torch.serving import BatchedEngine, CodedServer
     from repro_torch.train import (PipelineDriver, Trainer,
                                    make_coded_train_step)
-    from repro_torch.tune import RandomStragglers
+    from repro_torch.tune import NoStragglers, RandomStragglers
 except ImportError as e:
     print(f"chip_smoke: the port's package does not import from "
           f"{HERE / 'src'}: {e}", file=sys.stderr)
@@ -2082,6 +2105,401 @@ def run_autotune_train(args):
     return counts
 
 
+# ------------------------------------------------------------ elastic path
+EL_CODE = (8, 3, 1, 2)         # (n, d, s, m): the elastic trainer's home
+EL_BATCH = 448                 # rows a step: 8 * 56, splits over 8 and 7
+EL_LR = 1e-6                   # NAG step of the elastic runs
+EL_LADDER = ([(3, "leave", 7), (9, "join", 7)], 14)   # (trace, steps) of (a)
+EL_BURST = ([(3, "preempt", 6), (3, "preempt", 7)], 8)  # of (b)
+EL_PIPE = ([(3, "leave", 7)], 8)                      # of (c)
+EL_DEGRADED_LOADS = (5, 5, 5, 5, 4, 4, 4, 0)
+EL_BURST_LOADS = (7, 7, 7, 7, 6, 6, 0, 0)
+
+
+def _state_tensors(tr):
+    """A trainer's parameters and optimizer-state tensors, by name."""
+    out = {f"params/{k}": v for k, v in tr.params.items()}
+    for k, v in tr.opt_state.items():
+        if isinstance(v, dict):
+            out.update((f"opt_state/{k}/{n}", t) for n, t in v.items())
+        elif torch.is_tensor(v):
+            out[f"opt_state/{k}"] = v
+    return out
+
+
+def _same_bytes(a, b):
+    a, b = a.detach().reshape(-1), b.detach().reshape(-1)
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.view(torch.uint8), b.view(torch.uint8)))
+
+
+class _ObservedElastic(ElasticTrainer):
+    """``ElasticTrainer`` with its prewarm and resize timed and its ladder's
+    launches recorded; each resize's state is cloned just before it and
+    held bitwise (and in place) just after it."""
+
+    def __init__(self, *a, **kw):
+        self.prewarms, self.resizes, self.ladder_launches = [], [], []
+        super().__init__(*a, **kw)
+
+    def prewarm(self, new_n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = super().prewarm(new_n)
+        torch.cuda.synchronize()
+        self.prewarms.append({"n": new_n, "ms": (time.perf_counter() - t0) * 1e3})
+        return out
+
+    def resize(self, new_n, step=None, plan=None):
+        before = {k: (v.clone(), v.data_ptr())
+                  for k, v in _state_tensors(self).items()}
+        built0 = len(self._comm_caches.get(new_n, (None, {}))[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        super().resize(new_n, step=step, plan=plan)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = _state_tensors(self)
+        self.resizes.append({
+            "step": self._step_count, "to": new_n, "ms": ms,
+            "checkpoint": self._ckpt is not None,
+            "artifacts_built": len(self._arts_cache) - built0,
+            "state_bitwise": set(after) == set(before) and all(
+                _same_bytes(after[k], v) for k, (v, _) in before.items()),
+            "state_in_place": all(after[k].data_ptr() == p
+                                  for k, (_, p) in before.items())})
+
+    def _maybe_ladder(self):
+        c0 = ops.launch_counts()
+        super()._maybe_ladder()
+        self.ladder_launches.append(_launch_delta(c0, ops.launch_counts()))
+
+
+def _el_label(code):
+    fam = "hetero" if isinstance(code, HeteroCode) else "uniform"
+    return f"{fam}({code.n},{code.d},{code.s},{code.m})"
+
+
+def _el_trainer(cfg, backend, trace, policy, pipelined=False, **kw):
+    opt = sgd_momentum(PIPE_LR, 0.9) if pipelined else nag(EL_LR)
+    spec = coding.SchemeSpec(backend=backend, pipelined=pipelined,
+                             fuse_apply=pipelined or None)
+    return _ObservedElastic(cfg, make_code(*EL_CODE), opt, spec=spec,
+                            straggler_source=NoStragglers(),
+                            churn=MembershipTrace(trace), elastic=policy,
+                            seed=0, **kw)
+
+
+def _el_run(tr, batch, steps, label):
+    """``steps`` steps counted from 0; each step's launches, kernel paths
+    and wall filed under the scheme it ran under."""
+    schemes, logs = {}, []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for _ in range(steps):
+        c0, p0 = ops.launch_counts(), ops.path_counts()
+        t0 = time.perf_counter()
+        m = tr.step(batch)
+        torch.cuda.synchronize()
+        m["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        m["scheme"] = _el_label(tr.code)
+        m["launches"] = _launch_delta(c0, ops.launch_counts())
+        logs.append(m)
+        _record_scheme(schemes, m["scheme"], m["launches"],
+                       _path_delta(p0, ops.path_counts()), wall_ms=m["wall_ms"])
+    drained = tr.drain()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    _note_paths(label, require_vector=True)
+    for sc in schemes.values():
+        sc["step_ms_median"] = statistics.median(sc["wall_ms"])
+    return logs, drained, schemes, counts
+
+
+def _el_twin(cfg, batch, trace, policy, steps, tr, what, pipelined=False):
+    """The plain-backend twin on the same trace: its ladder log, and beta
+    within rtol 1e-4 (atol 1e-4 of its largest element)."""
+    twin = _el_trainer(cfg, "ref", trace, policy, pipelined=pipelined)
+    for _ in range(steps):
+        twin.step(batch)
+    twin.drain()
+    torch.cuda.synchronize()
+    if twin.elastic_events != tr.elastic_events:
+        fail(f"elastic ({what}): the plain twin's ladder {twin.elastic_events} "
+             f"!= {tr.elastic_events}")
+    b_k, b_p = tr.params["beta"], twin.params["beta"]
+    err = _rel_err(b_k, b_p)
+    if not torch.allclose(b_k, b_p, rtol=1e-4, atol=1e-4 * b_p.abs().max().item()):
+        fail(f"elastic ({what}): beta against the plain twin {err:.3e} relative")
+    return err
+
+
+def _el_check_steps(what, logs, want):
+    """Each step's launches against ``want(step, m)``."""
+    for t, m in enumerate(logs):
+        if m["launches"] != want(t, m):
+            fail(f"elastic ({what}): step {t} under {m['scheme']} launched "
+                 f"{m['launches']}, expected {want(t, m)}")
+
+
+def run_elastic(args):
+    """``ElasticTrainer`` on logistic-paper at full width, home code
+    (8, 3, 1, 2), NAG, no stragglers, one seeded batch of 448 rows.
+
+    (a) the ladder: a leave at step 3 and a join at step 9 walk prewarm 7,
+    the zero-load re-plan, a resize to 7 and back to 8 (each state bitwise
+    through its resize, the return to 8 bitwise the home code); (b) a burst
+    of two preemptions fails over to partial decode for one step and then
+    re-plans to s = 3; (c) a pipelined fused trainer re-plans with an update
+    in flight (one ``coded_decode_apply`` in the swap); (d) a tuner plan with
+    ``resize_to`` goes through resize, and is skipped when the batch does not
+    split.  Each run is counted from 0 and held against its plain twin."""
+    cfg = get_config("logistic-paper")
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in
+             make_synthetic_batch(rng, cfg, EL_BATCH).items()}
+    home = make_code(*EL_CODE)
+    n, d = home.n, home.d
+    # subset gradients (one 2D encode each) a step: every worker walks all
+    # d slots of its code, padded slots of a zero-load worker included
+    enc_per_step = {f"uniform({n},3,1,2)": n * d, f"uniform({n - 1},3,1,2)": (n - 1) * d,
+                    f"hetero({n},5,2,2)": n * 5, f"hetero({n},7,3,2)": n * 7}
+    counts, out = {}, {}
+
+    # ---- (a) the ladder, counted from 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    policy_a = ElasticPolicy(replan_after=1, resize_after=3, prewarm=(7,))
+    trace_a, steps_a = EL_LADDER
+    ops.reset_launch_counts()
+    tr = _el_trainer(cfg, "auto", trace_a, policy_a)
+    if tr.arts.codec.backend.name != "hopper":
+        fail(f"elastic: backend {tr.arts.codec.backend.name!r}, not the kernels")
+    logs_a, _, schemes_a, counts_a = _el_run(tr, batch, steps_a,
+                                             "logistic-paper ElasticTrainer.step")
+    peak_a = torch.cuda.max_memory_allocated()
+    counts["logistic-paper ElasticTrainer.step"] = counts_a
+    ev = tr.elastic_events
+    want_ev = [{"step": 0, "action": "prewarm", "n": 7},
+               {"step": 4, "action": "replan-degraded", "departed": (7,),
+                "loads": EL_DEGRADED_LOADS, "s": 2},
+               {"step": 6, "action": "resize", "n": 7, "warm": True},
+               {"step": 9, "action": "resize", "n": 8, "warm": True}]
+    if ev != want_ev:
+        fail(f"elastic (a): ladder {ev}, expected {want_ev}")
+    W_home = coding.make_step_inputs(home, ())["W"]
+    W_now = coding.make_step_inputs(tr.code, ())["W"]
+    if not (np.array_equal(np.asarray(tr.code.C), np.asarray(home.C))
+            and np.array_equal(W_now, W_home)
+            and np.asarray(tr.code.C).tobytes() == np.asarray(home.C).tobytes()):
+        fail("elastic (a): the code after the return to 8 is not the home "
+             "code bitwise")
+    if [r["to"] for r in tr.resizes] != [7, 8] or not all(
+            r["state_bitwise"] and r["state_in_place"] for r in tr.resizes):
+        fail(f"elastic (a): resizes {tr.resizes}")
+    if [r["artifacts_built"] for r in tr.resizes] != [0, 0]:
+        fail(f"elastic (a): a resize built artifacts {tr.resizes}")
+    sync_step = lambda t, m: {"coded_encode_2d": enc_per_step[m["scheme"]],
+                              "coded_decode_2d": 1}
+    _el_check_steps("a", logs_a, sync_step)
+    want_schemes = {f"uniform({n},3,1,2)": 4 + 5, f"hetero({n},5,2,2)": 2,
+                    f"uniform({n - 1},3,1,2)": 3}
+    if {k: v["steps"] for k, v in schemes_a.items()} != want_schemes:
+        fail(f"elastic (a): steps by scheme {list(schemes_a)}")
+    if any(tr.ladder_launches):
+        fail(f"elastic (a): the ladder launched {tr.ladder_launches}")
+    if not all(np.isfinite([m["loss"], m["grad_norm"]]).all() for m in logs_a):
+        fail(f"elastic (a): non-finite metrics {logs_a}")
+    err_a = _el_twin(cfg, batch, trace_a, policy_a, steps_a, tr, "a")
+    out["ladder"] = {"trace": trace_a, "steps": steps_a,
+                     "policy": dataclasses.asdict(policy_a),
+                     "events": ev, "losses": [m["loss"] for m in logs_a],
+                     "step_scheme": [m["scheme"] for m in logs_a],
+                     "schemes": schemes_a, "launches": counts_a,
+                     "resizes": tr.resizes, "prewarms": tr.prewarms,
+                     "return_is_home_code_bitwise": True,
+                     "beta_rel_err_vs_plain_twin": err_a,
+                     "peak_memory_bytes": peak_a}
+    bucket = {tr.code.n: tr.arts.pack_plan.buckets[0].size}
+    del tr
+
+    # ---- (b) the burst, counted from 0
+    policy_b = ElasticPolicy(replan_after=1, resize_after=0)
+    trace_b, steps_b = EL_BURST
+    tb = _el_trainer(cfg, "auto", trace_b, policy_b)
+    logs_b, _, schemes_b, counts_b = _el_run(
+        tb, batch, steps_b, "logistic-paper ElasticTrainer.step (burst)")
+    counts["logistic-paper ElasticTrainer.step (burst)"] = counts_b
+    ev = tb.elastic_events
+    want_ev = [{"step": 3, "action": "partial-failover", "stragglers": (6, 7),
+                "s": 1},
+               {"step": 4, "action": "replan-degraded", "departed": (6, 7),
+                "loads": EL_BURST_LOADS, "s": 3}]
+    if ev != want_ev:
+        fail(f"elastic (b): ladder {ev}, expected {want_ev}")
+    if not np.isfinite(logs_b[3].get("decode_err_bound", np.nan)):
+        fail(f"elastic (b): the failover step reports no finite error bound: "
+             f"{logs_b[3]}")
+    if any("decode_err_bound" in m for m in logs_b[4:]):
+        fail("elastic (b): the re-planned steps decode approximately")
+    _el_check_steps("b", logs_b, sync_step)
+    if {k: v["steps"] for k, v in schemes_b.items()} != {
+            f"uniform({n},3,1,2)": 4, f"hetero({n},7,3,2)": steps_b - 4}:
+        fail(f"elastic (b): steps by scheme {list(schemes_b)}")
+    if not all(np.isfinite(m["loss"]) for m in logs_b):
+        fail(f"elastic (b): non-finite losses {logs_b}")
+    err_b = _el_twin(cfg, batch, trace_b, policy_b, steps_b, tb, "b")
+    out["burst"] = {"trace": trace_b, "steps": steps_b, "events": ev,
+                    "losses": [m["loss"] for m in logs_b],
+                    "decode_err_bound_step_3": logs_b[3]["decode_err_bound"],
+                    "step_scheme": [m["scheme"] for m in logs_b],
+                    "schemes": schemes_b, "launches": counts_b,
+                    "beta_rel_err_vs_plain_twin": err_b}
+    del tb
+
+    # ---- (c) the pipelined fused trainer re-plans with an update in flight
+    trace_c, steps_c = EL_PIPE
+    tc_ = _el_trainer(cfg, "auto", trace_c, policy_b, pipelined=True)
+    logs_c, drained, schemes_c, counts_c = _el_run(
+        tc_, batch, steps_c, "logistic-paper pipelined ElasticTrainer.step")
+    counts["logistic-paper pipelined ElasticTrainer.step"] = counts_c
+    swaps = [(t, dl) for t, dl in enumerate(tc_.ladder_launches) if dl]
+    if swaps != [(4, {"coded_decode_apply": 1})]:
+        fail(f"elastic (c): the ladder launched {swaps}; the re-plan's drain "
+             f"under the outgoing code should launch one coded_decode_apply")
+    if [e["action"] for e in tc_.elastic_events] != ["replan-degraded"] or \
+            tc_.pipelined or drained is not None:
+        fail(f"elastic (c): {tc_.elastic_events}, pipelined {tc_.pipelined}")
+    fills = [t for t, m in enumerate(logs_c) if np.isnan(m["loss"])]
+    if fills != [0]:
+        fail(f"elastic (c): fills at steps {fills}")
+
+    def pipe_step(t, m):
+        if t < 4:    # the fill, then steady steps that retire an update
+            return {"coded_encode_acc_2d": n * d,
+                    **({"coded_decode_apply": 1} if t else {})}
+        # the swap's drain, then synchronous steps under the degraded code
+        return {**sync_step(t, m), **({"coded_decode_apply": 1} if t == 4 else {})}
+    _el_check_steps("c", logs_c, pipe_step)
+    err_c = _el_twin(cfg, batch, trace_c, policy_b, steps_c, tc_, "c",
+                     pipelined=True)
+    out["pipelined"] = {"trace": trace_c, "steps": steps_c,
+                        "events": tc_.elastic_events,
+                        "losses": [m["loss"] for m in logs_c],
+                        "ladder_launches": {t: dl for t, dl in swaps},
+                        "step_scheme": [m["scheme"] for m in logs_c],
+                        "schemes": schemes_c, "launches": counts_c,
+                        "beta_rel_err_vs_plain_twin": err_c}
+    del tc_
+
+    # ---- (d) a tuner's resize, with checkpoints into a temporary directory
+    plan = _forced_plan("uniform", 3, 1, 2, n - 1, resize_to=n - 1)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        ops.reset_launch_counts()
+        td = _el_trainer(cfg, "auto", [], ElasticPolicy(),
+                         checkpoint_dir=ckpt_dir)
+        td.step(batch)
+        td._apply_plan(plan)
+        m7 = td.step(batch)
+        bucket[td.code.n] = td.arts.pack_plan.buckets[0].size
+        td.resize(n)
+        td.step(batch)
+        torch.cuda.synchronize()
+        counts_d = ops.launch_counts()
+        _note_paths("logistic-paper ElasticTrainer tuner resize")
+        counts["logistic-paper ElasticTrainer tuner resize"] = counts_d
+        snapshots = len(td._ckpt.steps())
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if [e["action"] for e in td.elastic_events] != ["resize", "resize"] or \
+            [r["to"] for r in td.resizes] != [n - 1, n] or not all(
+                r["state_bitwise"] for r in td.resizes) or not np.isfinite(m7["loss"]):
+        fail(f"elastic (d): {td.elastic_events} {td.resizes}")
+    if counts_d != _expect(coded_encode_2d=2 * n * d + (n - 1) * d,
+                           coded_decode_2d=3):
+        fail(f"elastic (d): launches {counts_d}")
+    ts = _el_trainer(cfg, "auto", [], ElasticPolicy())
+    ts.step({k: torch.from_numpy(v).to(DEV) for k, v in make_synthetic_batch(
+        np.random.default_rng(SEED), cfg, args.global_batch).items()})
+    ts._apply_plan(plan)
+    want_skip = [{"step": 1, "action": "resize-skipped", "to": n - 1,
+                  "reason": "infeasible"}]
+    if args.global_batch % (n - 1) == 0 or ts.elastic_events != want_skip:
+        fail(f"elastic (d): a {args.global_batch}-row batch over {n - 1} "
+             f"workers: {ts.elastic_events}")
+    out["tuner_resize"] = {"plan": _plan_label(plan), "resize_to": n - 1,
+                           "events": td.elastic_events, "resizes": td.resizes,
+                           "snapshots": snapshots, "launches": counts_d,
+                           "skipped_at_global_batch": args.global_batch,
+                           "skipped_events": ts.elastic_events}
+    del td, ts
+
+    # ---- the 2D decode at both cluster sizes' buckets, in one call (a
+    # bucket pads l / m to a multiple of lcm(128, n): 171776 at 8, 172032 at 7)
+    decode_times = {f"F({k},{L})": measure("decode", (k, L), m=2)
+                    for k, L in sorted(bucket.items())}
+    say(phase="elastic", model=cfg.name, l=cfg.d_model, home_code=list(EL_CODE),
+        global_batch=EL_BATCH, optimizer="nag", lr=EL_LR, schedule="gather",
+        packed=True, wire="float32", **out, decode_2d_by_cluster_size=decode_times,
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return counts
+
+
+LAUNCH_ARGV = ["--arch", "logistic-paper", "--full", "--n-data", "8", "--d",
+               "4", "--s", "2", "--m", "2", "--batch-per-subset", "64",
+               "--steps", "5", "--optimizer", "nag", "--lr", "1e-6",
+               "--stragglers", "random"]
+# ``python -m repro_torch.launch.train`` as runpy runs it, then the kernel
+# launch counts and the library it loaded, as one JSON line
+_LAUNCH_RUNNER = """
+import json, runpy, sys
+from repro_torch.kernels import _build, ops
+runpy.run_module("repro_torch.launch.train", run_name="__main__", alter_sys=True)
+print(json.dumps({"launches": ops.launch_counts(), "paths": ops.path_counts(),
+                  "library": _build.last_build}))
+"""
+
+
+def run_launch(coded_fraction):
+    """The training launcher as a subprocess (``PYTHONPATH=src``): exit 0, a
+    finite final loss, the main path's coded fraction, the library phase
+    ``build`` made, and its launches."""
+    env = {**os.environ, "PYTHONPATH": str(HERE / "src")}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", _LAUNCH_RUNNER, *LAUNCH_ARGV],
+                         capture_output=True, text=True, env=env, cwd=HERE,
+                         timeout=300)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"launch: exit {res.returncode}: {res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    final = re.fullmatch(r"final loss (\S+) \(coded fraction (\S+)\)", lines[-2])
+    info = json.loads(lines[-1])
+    if final is None or not np.isfinite(float(final.group(1))):
+        fail(f"launch: no finite final loss in {lines[-3:]}")
+    if float(final.group(2)) != round(coded_fraction, 3):
+        fail(f"launch: coded fraction {final.group(2)}, the main path's is "
+             f"{coded_fraction}")
+    if info["library"]["built"] or info["library"]["lib"] != _build.last_build["lib"]:
+        fail(f"launch: did not load phase build's library: {info['library']}")
+    steps, n, d = 5, 8, 4
+    if info["launches"] != _expect(coded_encode_2d=steps * n * d,
+                                   coded_decode_2d=steps):
+        fail(f"launch: launches {info['launches']}")
+    scalar = {k: v["scalar"] for k, v in info["paths"].items() if v["scalar"]}
+    if scalar:
+        fail(f"launch: kernels took the scalar path {scalar}")
+    label = "python -m repro_torch.launch.train"
+    KERNEL_PATHS[label] = {k: v for k, v in info["paths"].items()
+                           if v["vector"] or v["scalar"]}
+    say(phase="launch", argv=LAUNCH_ARGV, exit_code=res.returncode,
+        final_line=lines[-2], step_lines=lines[:-2], launches=info["launches"],
+        library=info["library"], seconds=wall, nvidia_smi=nvidia_smi_line())
+    return {label: info["launches"]}
+
+
 def run_autotune_serve(args, params):
     """The autotuned ``CodedServer`` on qwen3-1.7b at full width (the serve
     phase's weights), 4096-token prompts, from code (4, 3, 1, 2) under a
@@ -2711,6 +3129,8 @@ def main():
 
     counts = run_main_path(args)
     counts["logistic-paper autotuned Trainer.step"] = run_autotune_train(args)
+    counts.update(run_elastic(args))
+    counts.update(run_launch(coded_fraction=1.0))   # run_main_path's, held to 1.0
     serve_path = "qwen3-1.7b CodedServer.step"
     counts[serve_path], n_batches, params = run_serve_path(args)
     counts["qwen3-1.7b autotuned CodedServer.step"] = \
@@ -2759,7 +3179,11 @@ def main():
             "ms": meas["ms"], "plain_ms": meas["plain_ms"],
             "bound_ms": meas["bound_ms"], "bound_by": meas["bound_by"],
             "library_ms": meas["library_ms"], "shape": meas["shape"],
-            "dtype": meas["dtype"], "ms_l2_warm": meas["ms_l2_warm"]})
+            "dtype": meas["dtype"], "ms_l2_warm": meas["ms_l2_warm"],
+            # every counted path that launched it (the elastic runs and the
+            # launcher run the 2D pair and the fused pair too)
+            "launches_by_path": {p: c[name] for p, c in counts.items()
+                                 if c.get(name)}})
         if name == "flash_attention":
             kernels[-1]["launches_per_batch"] = kernels[-1]["launches"] / n_batches
             kernels[-1]["launches_generate_prefill"] = \

@@ -71,12 +71,16 @@ def encode_leaf(g: torch.Tensor, coef: torch.Tensor, plan: LeafPlan,
 @dataclasses.dataclass(frozen=True)
 class Codec:
     """Gradient code + schedule + backend on a device, with the leaf
-    lifecycle methods."""
+    lifecycle methods.  ``device`` defaults to the card and raises when
+    there is none, as ``make_codec`` does; pass ``"cpu"`` for the host."""
     code: "GradCode"
     schedule: Schedule
     backend: CodecBackend
     wire_dtype: torch.dtype = torch.float32
-    device: torch.device = torch.device("cpu")
+    device: str | torch.device = "cuda"
+
+    def __post_init__(self):
+        object.__setattr__(self, "device", resolve_device(self.device))
 
     # ---- planning
     def plan(self, tree: Mapping[str, Any]) -> dict[str, LeafPlan]:

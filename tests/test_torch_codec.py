@@ -268,6 +268,28 @@ def test_backend_follows_the_explicit_device():
                 tc.resolve_backend(name, "cuda")
 
 
+def test_codec_built_directly_keeps_its_device():
+    """A ``Codec`` built without ``make_codec`` puts its accumulators and
+    wire rows on the device it was given; without one it resolves the card,
+    never a quiet host."""
+    code = tcore.make_code(4, 3, 1, 2)
+    kw = dict(code=code, schedule=tc.get_schedule("gather"),
+              backend=tc.TorchRefBackend())
+    codec = tc.Codec(**kw, device="cpu")
+    assert codec.device == torch.device("cpu")
+    tree = {"w": torch.zeros(8, 6)}
+    plans = codec.plan(tree)
+    pplan = codec.pack_plan(tree, plans)
+    bufs = (codec.bucket_acc_zeros(pplan) + codec.wire_rows(pplan)
+            + [codec.encoding_zero(tree["w"], plans["w"])])
+    assert all(b.device.type == "cpu" for b in bufs)
+    if torch.cuda.is_available():
+        assert tc.Codec(**kw).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tc.Codec(**kw)
+
+
 def test_scheme_spec_levers():
     spec = tc.SchemeSpec(schedule="a2a", encode_dtype="bfloat16")
     assert spec.replace(packed=False).packed is False

@@ -34,7 +34,10 @@ def test_every_module_imports_without_jax_or_the_reference():
             "repro_torch.bench", "repro_torch.bench.straggler",
             "repro_torch.tune.estimator", "repro_torch.tune.planner",
             "repro_torch.tune.policy",
-            "repro_torch.tune.arrivals"} <= set(mods)
+            "repro_torch.tune.arrivals", "repro_torch.elastic",
+            "repro_torch.elastic.events", "repro_torch.elastic.tracker",
+            "repro_torch.elastic.trainer", "repro_torch.launch",
+            "repro_torch.launch.train"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -77,6 +80,10 @@ def _entry_points():
     from repro_torch.core.runtime_model import RuntimeParams
     from repro_torch.tune import (AutotunePolicy, PoissonArrivals,
                                   ServingPolicy, ShiftedExpSampler)
+    from repro_torch.coding.schedules import get_schedule
+    from repro_torch.coding.backends import TorchRefBackend
+    from repro_torch.elastic import ElasticTrainer
+    from repro_torch.launch import train as launch_train
     cfg, code = get_config("logistic-paper"), make_code(4, 3, 1, 2)
     lm = get_config("qwen3-1.7b").reduced()
     timed = ShiftedExpSampler(RuntimeParams(n=4, lambda1=1.0, lambda2=1.0,
@@ -102,6 +109,11 @@ def _entry_points():
         "build_serve_artifacts":
             lambda: build_serve_artifacts(lm, batch=2, seq_len=8),
         "models.api.init_cache": lambda: api.init_cache(lm, 2, 8),
+        "ElasticTrainer": lambda: ElasticTrainer(cfg, code, nag(1e-3)),
+        "launch.train.main": lambda: launch_train.main(["--steps", "1"]),
+        "Codec": lambda: coding.Codec(code=code,
+                                      schedule=get_schedule("gather"),
+                                      backend=TorchRefBackend()),
     }
 
 
@@ -113,7 +125,9 @@ def _entry_points():
                                   "models.api.init(dense)", "CodedServer",
                                   "make_coded_forward", "BatchedEngine",
                                   "build_serve_artifacts",
-                                  "models.api.init_cache"])
+                                  "models.api.init_cache",
+                                  "ElasticTrainer", "launch.train.main",
+                                  "Codec"])
 def test_default_device_is_the_card_and_never_a_quiet_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
