@@ -136,6 +136,34 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            flash call.  Outside the counts: the decoded gradient with a
            straggler against the uncoded one, and fill + drain against the
            synchronous step, bitwise
+  serve_moe
+           the serve phase on ``olmoe-1b-7b`` (the MoE family: 16 layers,
+           d_model 2048, 64 experts of d_ff 1024, top 8, capacity factor
+           1.25; random f32 weights from a seed, 27.7 GB), code (4, 3, 1, 2),
+           one 4096-token prompt a subset, 2 batches: 192 flash launches, 12
+           encodes and 1 decode a batch.  An MoE forward depends on its
+           batch (an expert's capacity counts the forward's tokens), so the
+           decoded logits of each subset are held against the uncoded
+           forward of that subset's prompt alone; the hedge bitwise; the
+           share of picks each layer drops on one prompt
+  generate_moe
+           ``BatchedEngine`` on serve_moe's weights: 4 prompts of 4096
+           tokens, 16 greedy tokens; 16 flash launches in the prefill and 0
+           in the decode, every step's logits finite; outside the window the
+           prefill's logits against ``last_logits`` and two decodes of one
+           step from clones of one cache, both bitwise.  A decode step's
+           capacity is 1 slot an expert (4 tokens), so its picks collide and
+           drop and it is not held against the full forward (the reference's
+           semantics); its median ms against a byte bound that reads every
+           expert of every layer
+  train_moe
+           the synchronous ``Trainer`` of train_lm on ``olmoe-1b-7b`` at full
+           width and 4 of its 16 layers (cut: the f32 trainer at full depth
+           would need about 6.7 x 27.7 GB), 4096-token sequences, NAG, 3
+           steps counted as train_lm's; outside the window the decoded
+           gradient with a straggler against the uncoded one, and one
+           subset's gradient twice, bitwise (the dispatch sums in a fixed
+           order: no atomics)
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
@@ -219,6 +247,7 @@ try:
                                                   encode_path)
     from repro_torch.models import api as model_api
     from repro_torch.models import common as model_common
+    from repro_torch.models import moe
     from repro_torch.optim import nag, sgd_momentum
     from repro_torch.serving import BatchedEngine, CodedServer
     from repro_torch.train import (PipelineDriver, Trainer,
@@ -244,9 +273,9 @@ PATTERNS = ((2, 5), (), (0,))  # straggler sets of the chained parity checks
 SERVE_SEQ = 4096               # prompt length of the serving path
 SERVE_CODE = (4, 3, 1, 2)      # (n, d, s, m) of the serving path
 SERVE_BATCHES = 3              # batches the serve phase submits and steps
-# decoded logits against the uncoded forward: f32 throughout, 28 layers of
-# products summed in other orders (one prompt a call against four), then the
-# decode's weights; held to 1e-3 of the largest logit
+# decoded logits against the uncoded forward of each subset's prompt alone,
+# as the coded forward runs it: f32 throughout, the forward's logits through
+# the encode's and the decode's weights; held to 1e-3 of the largest logit
 SERVE_REL_TOL = 1e-3
 LM_SEQ = 4096                  # tokens a sequence on the LM training path
 LM_CODE = (4, 3, 1, 2)         # (n, d, s, m): one sequence a subset
@@ -270,6 +299,11 @@ GEN_CHECKED = (0, 1, GEN_NEW - 1)   # decode steps held against the forward
 # kernel (3xTF32) is printed beside it: at 28 layers it is itself 2.9e-4
 # from the materialized one (tools/decode_vs_forward.py, PERF.md)
 GEN_TOL = 2e-4
+MOE_ARCH = "olmoe-1b-7b"       # the MoE phases' model
+MOE_SERVE_BATCHES = 2          # batches the serve_moe phase steps
+MOE_GEN_NEW = 16               # greedy tokens a prompt in generate_moe
+MOE_TRAIN_LAYERS = 4           # of 16: coded training at full depth needs
+                               # about 6.7 x its 27.7 GB of f32 parameters
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 HOST_CALLS = 200               # calls of one host-cost measurement
 
@@ -309,25 +343,26 @@ def _offset_copy(x):
     return view
 
 
-def _serve_codec_shapes(code_nsdm=SERVE_CODE):
+def _serve_codec_shapes(code_nsdm=SERVE_CODE, arch="qwen3-1.7b"):
     """The serving path's encode ``G (1, q, m)`` and decode ``(n, L, m)``:
     one request a subset, its ``(vocab,)`` logits folded m-fold, and the
     wire of k blocks of q rounded up to lcm(WIRE_ALIGN, n), as
     ``make_coded_forward`` lays them out."""
     code = make_code(*code_nsdm)
-    q = -(-get_config("qwen3-1.7b").vocab // code.m)
+    q = -(-get_config(arch).vocab // code.m)
     align = math.lcm(coding.WIRE_ALIGN, code.n)
     L = -(-(code.num_subsets * q) // align) * align
     return (1, q, code.m), (code.n, L, code.m)
 
 
 SERVE_ENC, SERVE_DEC = _serve_codec_shapes()
+MOE_ENC, MOE_DEC = _serve_codec_shapes(SERVE_CODE, MOE_ARCH)
 ENC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (8, 1024, 8), (31, 96, 3),
-         (2, 1001, 7), (1, 171737, 2), SERVE_ENC]
+         (2, 1001, 7), (1, 171737, 2), SERVE_ENC, MOE_ENC]
 ENC3D = [(3, 16, 2, 128), (4, 256, 2, 64), (2, 40, 5, 96), (2, 7, 3, 33),
          (1, 3072, 2, 2048)]
 DEC2D = [(4, 64, 2), (16, 512, 3), (32, 96, 8), (10, 1280, 1), (12, 1001, 19),
-         (64, 77, 32), (8, 171776, 2), SERVE_DEC]
+         (64, 77, 32), (8, 171776, 2), SERVE_DEC, MOE_DEC]
 DEC3D = [(4, 32, 2, 128), (16, 128, 4, 64), (5, 9, 11, 17), (8, 3072, 2048)]
 ACC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (2, 1001, 7), (1, 171737, 2)]
 ACC3D = [(2, 7, 3, 33), (2, 40, 5, 96), (3, 16, 2, 128), (1, 3072, 2, 2048)]
@@ -602,13 +637,15 @@ def _apply_kernels_per_call(gen):
 
 
 # (B, S, H, Hkv, hd, mask_kind, window, query offset): the sweep of
-# tests/test_kernels.py, the serving shape, a window and a query offset; then
-# the edges of the tensor-core kernel: hd 32 and 64 with a ragged S (a last
-# key tile and query tile cut short), q_per_kv = 4, and B > 1 with a window
-# and a query offset
+# tests/test_kernels.py, the serving shapes (qwen3-1.7b's GQA, olmoe-1b-7b's
+# MHA: q_per_kv = 1 at hd 128, also its training shape), a window and a
+# query offset; then the edges of the tensor-core kernel: hd 32 and 64 with
+# a ragged S (a last key tile and query tile cut short), q_per_kv = 4, and
+# B > 1 with a window and a query offset
 FLASH = [(2, 256, 4, 2, 64, "causal", 0, 0), (1, 128, 2, 2, 32, "full", 0, 0),
          (2, 256, 4, 4, 64, "window", 64, 0), (1, 192, 4, 1, 128, "causal", 0, 0),
          (1, SERVE_SEQ, 16, 8, 128, "causal", 0, 0),
+         (1, SERVE_SEQ, 16, 16, 128, "causal", 0, 0),
          (1, 1024, 16, 8, 128, "window", 256, 0),
          (2, 200, 8, 2, 128, "causal", 0, 312),
          (1, 200, 4, 2, 32, "causal", 0, 0), (1, 200, 4, 2, 64, "causal", 0, 0),
@@ -623,6 +660,9 @@ FLASH_FUSED = (2, 320, 8, 2, 128)
 FLASH_BWD_EDGES = [(1, 1000, 16, 8, 128, "causal", 0, 0),
                    (2, 97, 8, 2, 64, "window", 33, 5),
                    (1, 160, 8, 2, 32, "window", 48, 16)]
+# the forward's own shape on top of FLASH: olmoe-1b-7b's generate prefill,
+# 4 prompts of 4096 tokens (the grid's batch axis at its largest)
+FLASH_FWD_EDGES = [(GEN_BATCH, GEN_PROMPT, 16, 16, 128, "causal", 0, 0)]
 
 
 FLASH_BF16_REL_NORM = 1e-2
@@ -644,10 +684,12 @@ def _flash_inputs(gen, case, dtype):
 
 def check_flash(gen):
     """``flash_attention`` against its plain version on the card (f32 and
-    bf16), one launch a call; then what the wrapper must refuse."""
-    r = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "cases": 0}
+    bf16), one launch a call; then what the wrapper must refuse.  The
+    errors of the cases at the serving length are kept by case."""
+    r = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "cases": 0,
+         "serve_len_max_abs_err": {}}
     for dtype in (F32, torch.bfloat16):
-        for case in FLASH + [FLASH_FUSED]:
+        for case in FLASH + FLASH_FWD_EDGES + [FLASH_FUSED]:
             q, k, v, (kind, w, p0) = _flash_inputs(gen, case, dtype)
             H, Hkv = q.shape[2], k.shape[2]
             n0 = flash_attn.LAUNCHES["flash_attention"]
@@ -665,6 +707,8 @@ def check_flash(gen):
             e = _close(what, got.to(F32), want.to(F32), TOL[dtype])
             key = "max_abs_err" if dtype == F32 else "max_abs_err_bf16"
             r[key] = max(r[key], e)
+            if case[1] == SERVE_SEQ:
+                r["serve_len_max_abs_err"][f"{case[:5]} {dtype}"] = e
             if dtype == torch.bfloat16:
                 # at long S the outputs are small (about 0.03 for S = 4096),
                 # so the elementwise 2e-2 alone is loose: the error's norm
@@ -736,14 +780,17 @@ def _flash_grads(fn, q, k, v, dout, g, kind, w, p0):
 
 def check_flash_bwd(gen):
     """The backward kernel against the plain version's autograd on the
-    card over the forward's sweep (the 4096-token serve shape with
-    q_per_kv = 2, a window, query offsets, hd 32 and 64 with ragged S, views
-    of one fused projection) and the backward's edges (FLASH_BWD_EDGES), f32
-    and bf16: one backward launch a call; the same bits on a second call (no
-    atomics); and the forward's output with the log-sum-exp residual written
-    bitwise the output without it."""
+    card over the forward's sweep (the 4096-token serve shapes with
+    q_per_kv = 2 and 1, a window, query offsets, hd 32 and 64 with ragged S,
+    views of one fused projection) and the backward's edges
+    (FLASH_BWD_EDGES), f32 and bf16: one backward launch a call; the same
+    bits on a second call (no atomics); and the forward's output with the
+    log-sum-exp residual written bitwise the output without it.  The
+    relative error norms of the cases at the serving length are kept by
+    case."""
     r = {"max_abs_err": 0.0, "max_rel_norm_err": 0.0,
-         "max_rel_norm_err_bf16": 0.0, "cases": 0}
+         "max_rel_norm_err_bf16": 0.0, "cases": 0,
+         "serve_len_max_rel_norm_err": {}}
     for dtype in (F32, torch.bfloat16):
         for case in FLASH + FLASH_BWD_EDGES + [FLASH_FUSED]:
             q, k, v, (kind, w, p0) = _flash_inputs(gen, case, dtype)
@@ -788,6 +835,10 @@ def check_flash_bwd(gen):
                 else:
                     r["max_rel_norm_err_bf16"] = max(
                         r["max_rel_norm_err_bf16"], rel)
+                if case[1] == SERVE_SEQ:
+                    by = r["serve_len_max_rel_norm_err"]
+                    key = f"{case[:5]} {dtype}"
+                    by[key] = max(by.get(key, 0.0), rel)
             r["cases"] += 1
     r["tolerance"] = {"f32_rel_norm": 1e-5,
                       "f32_max_abs_of_max": FLASH_BWD_MAX_ABS_OF_MAX,
@@ -1674,16 +1725,26 @@ def run_checkpoint_resume(args):
     return counts
 
 
-def run_serve_path(args):
-    """``CodedServer`` on qwen3-1.7b at full width with 4096-token prompts.
+def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
+                   phase="serve"):
+    """``CodedServer`` on ``arch`` at full width with 4096-token prompts,
+    one prompt a subset.
 
     Counted window: the launch counts and the plain flash version's call
     count are set to 0 just before the batches are submitted and read just
-    after the last one is stepped.  Outside it: the uncoded forward of the
-    first batch's prompts, the hedge, and the straggler-free serve."""
-    cfg = get_config("qwen3-1.7b")
+    after the last one is stepped.  Outside it: the uncoded forward of
+    each of the first batch's prompts alone, as the coded forward runs
+    each subset (an MoE forward depends on its batch: the experts'
+    capacity counts its tokens), the hedge, and the straggler-free serve;
+    for an MoE model also the share of picks each layer drops on the first
+    prompt."""
+    cfg = get_config(arch)
     code = make_code(*SERVE_CODE)
     k = code.num_subsets
+    label = f"{cfg.name} CodedServer.step"
+    gc.collect()
+    torch.cuda.empty_cache()
+    at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     params = model_api.init(cfg, DEV, gen)
@@ -1691,7 +1752,7 @@ def run_serve_path(args):
     init_s = time.perf_counter() - t0
     n_params = sum(v.numel() for v in params.values())
     rng = np.random.default_rng(SEED)
-    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCHES * k, SERVE_SEQ),
+    prompts = rng.integers(0, cfg.vocab, (n_batches * k, SERVE_SEQ),
                            dtype=np.int32)
     srv = CodedServer(cfg, code, params, batch_per_subset=1, seq_len=SERVE_SEQ,
                       straggler_source=RandomStragglers(seed=2), device=DEV)
@@ -1718,7 +1779,7 @@ def run_serve_path(args):
         results.append(res)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    serve_paths = _note_paths("qwen3-1.7b CodedServer.step", require_vector=False)
+    serve_paths = _note_paths(label, require_vector=False)
     plain_calls = flash_attn.PLAIN_CALLS["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
     if plain_calls:
@@ -1726,9 +1787,9 @@ def run_serve_path(args):
     per_prefill = cfg.n_layers
     want_batch = {"flash_attention": code.n * code.d * per_prefill,
                   "coded_encode_2d": code.n * code.d, "coded_decode_2d": 1}
-    if len(results) != SERVE_BATCHES or any(pb != want_batch for pb in per_batch):
-        fail(f"serving launches per batch {per_batch}, expected {want_batch} "
-             f"in each of {SERVE_BATCHES} batches")
+    if len(results) != n_batches or any(pb != want_batch for pb in per_batch):
+        fail(f"{label}: launches per batch {per_batch}, expected {want_batch} "
+             f"in each of {n_batches} batches")
     for res in results:
         if res.outputs.shape != (k, cfg.vocab) or not np.isfinite(res.outputs).all():
             fail(f"served outputs: shape {res.outputs.shape} or non-finite")
@@ -1738,14 +1799,21 @@ def run_serve_path(args):
     if ids != list(range(1, len(prompts) + 1)):
         fail(f"requests served out of order: {ids}")
 
-    # ---- outside the window: the uncoded forward of batch 0's prompts
+    # ---- outside the window: the uncoded forward of each of batch 0's
+    # prompts alone
     first = {"tokens": torch.from_numpy(prompts[:k]).to(DEV)}
+    forward = model_api.make_forward(cfg)
     t1 = time.perf_counter()
     with torch.no_grad():
-        direct = model_api.make_forward(cfg)(params, first)
+        direct = torch.cat([forward(params, {"tokens": t[None]})
+                            for t in first["tokens"]])
     torch.cuda.synchronize()
     direct_ms = (time.perf_counter() - t1) * 1e3
     direct = direct.cpu().numpy()
+    extra = {}
+    if cfg.family == "moe":
+        extra = {"dropped_pick_share_by_layer": _moe_dropped_share(
+            lambda: forward(params, {"tokens": first["tokens"][:1]}))}
     scale = float(np.abs(direct).max())
     err = float(np.abs(results[0].outputs - direct).max())
     if err > SERVE_REL_TOL * max(1.0, scale):
@@ -1772,8 +1840,8 @@ def run_serve_path(args):
     if args.profile:
         profile_steps(lambda: srv.serve_batch({"tokens": prompts[:k]}),
                       statistics.median(r.wall_s * 1e3 for r in results),
-                      "coded serve batch", steps=1)
-    say(phase="serve", model=cfg.name, params=n_params,
+                      f"{cfg.name} coded serve batch", steps=1)
+    say(phase=phase, model=cfg.name, n_layers=cfg.n_layers, params=n_params,
         param_bytes=sum(v.numel() * v.element_size() for v in params.values()),
         init_s=init_s, code=list(SERVE_CODE), batch_requests=k,
         seq_len=SERVE_SEQ, batches=len(results),
@@ -1785,8 +1853,31 @@ def run_serve_path(args):
         uncoded_forward_ms=direct_ms, max_abs_logit=scale,
         max_abs_err_vs_uncoded=err, tolerance=SERVE_REL_TOL * max(1.0, scale),
         hedge_bitwise=True, stragglers_1_vs_none_max_abs_diff=diff_full,
-        hedged_wall_ms=hedged.wall_s * 1e3, unhedged_wall_ms=full.wall_s * 1e3)
+        hedged_wall_ms=hedged.wall_s * 1e3, unhedged_wall_ms=full.wall_s * 1e3,
+        memory_at_start_bytes=at_start, **extra,
+        seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
     return counts, len(results), params
+
+
+def _moe_dropped_share(run):
+    """The share of the top-k picks each MoE layer drops while ``run()``
+    runs, read from the scatter dispatch of the port's own routing (the
+    module keeps no counter)."""
+    kept = []
+    dispatch = moe.dispatch
+
+    def record(*a):
+        r = dispatch(*a)
+        kept.append(r.keep)
+        return r
+
+    moe.dispatch = record
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        moe.dispatch = dispatch
+    return [1.0 - k.float().mean().item() for k in kept]
 
 
 # ------------------------------------------------------------ autotune paths
@@ -2755,6 +2846,131 @@ def run_generate_path(args, params):
     return counts
 
 
+def run_generate_moe(args, params):
+    """``BatchedEngine.generate`` on olmoe-1b-7b at full width and depth
+    (serve_moe's seeded weights, f32): 4 prompts of 4096 tokens, 16 greedy
+    tokens against a dense cache of 4112 positions.
+
+    A decode step's capacity counts its 4 tokens (``C = 1`` an expert), so
+    picks that collide drop and a step's logits are not the full forward's
+    (the reference's semantics): they are not held against it.  Counted
+    window: the launch counts are set to 0 just before ``generate`` and read
+    at its prefill's logits and after it; every step's logits must be
+    finite.  Outside it: the prefill's logits against ``last_logits`` of the
+    same prompts, and two decodes of one step from clones of one cache,
+    both bitwise; the share of picks a decode step drops, by layer."""
+    cfg = get_config(MOE_ARCH)
+    t_phase = time.perf_counter()
+    seq_len = GEN_PROMPT + MOE_GEN_NEW
+    prompts = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+    eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=seq_len,
+                        device=DEV)
+    events, flash_at, finite, kept = {}, {}, [], {}
+
+    def on_logits(t, logits):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[t] = ev
+        flash_at[t] = ops.launch_counts()["flash_attention"]
+        finite.append(torch.isfinite(logits).all())
+        if t == -1:
+            kept[t] = logits
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    flash_attn.PLAIN_CALLS["flash_attention"] = 0
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts, MOE_GEN_NEW, on_logits=on_logits)
+    wall_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plain = flash_attn.PLAIN_CALLS["flash_attention"]
+    prefill_flash = flash_at[-1]
+    decode_flash = counts["flash_attention"] - prefill_flash
+    if plain or prefill_flash != cfg.n_layers or decode_flash:
+        fail(f"generate_moe: flash launches {prefill_flash} in the prefill "
+             f"and {decode_flash} in the decode, plain calls {plain}; "
+             f"expected {cfg.n_layers}, 0 and 0")
+    want = _expect(flash_attention=cfg.n_layers)
+    if counts != want:
+        fail(f"generate_moe: kernel launches {counts}, expected {want}")
+    if tokens.shape != (GEN_BATCH, MOE_GEN_NEW) or \
+            not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        fail(f"generate_moe: tokens of shape {tokens.shape} or out of range")
+    bad = [t for t, f in zip(range(-1, MOE_GEN_NEW), finite) if not bool(f)]
+    if bad or len(finite) != MOE_GEN_NEW + 1:
+        fail(f"generate_moe: non-finite logits at steps {bad}")
+    prefill_ms = start.elapsed_time(events[-1])
+    step_ms = [events[t - 1].elapsed_time(events[t])
+               for t in range(MOE_GEN_NEW)]
+    median_ms = statistics.median(step_ms[2:])
+
+    # ---- outside the window
+    t1 = time.perf_counter()
+    toks = torch.from_numpy(prompts).to(DEV)
+    with torch.no_grad():
+        last = model_api.make_forward(cfg)(eng.params, {"tokens": toks})
+    if not torch.equal(last, kept[-1]):
+        fail("generate_moe: the prefill's logits are not last_logits' bits")
+    del last, kept
+    _, cache = eng.arts.prefill(eng.params, {"tokens": toks})
+    tok = torch.from_numpy(tokens[:, 0]).to(DEV)
+    repeats = []
+    for _ in range(2):
+        c = {k: v.clone() for k, v in cache.items()}
+        lg, c = eng.arts.decode(eng.params, c, tok)
+        repeats.append((_digest([lg]), _digest([c["k"], c["v"]])))
+        del c, lg
+    if repeats[0] != repeats[1]:
+        fail("generate_moe: two decodes from clones of one cache differ")
+    drop_share = _moe_dropped_share(lambda: eng.arts.decode(
+        eng.params, {k: v.clone() for k, v in cache.items()}, tok))
+    check_s = time.perf_counter() - t1
+    weight_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
+                       if k != "embed")
+    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                      for shape, dt in eng.arts.cache_shapes.values())
+    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    if args.profile:
+        def one_step():
+            eng.arts.decode(eng.params, cache, tok)   # writes slot 4096 again
+
+        one_step()                     # warm; 3 traced steps after it
+        profile_steps(one_step, median_ms,
+                      f"{cfg.name} BatchedEngine decode step", steps=3)
+    del cache
+    say(phase="generate_moe", model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        batch=GEN_BATCH, prompt_len=GEN_PROMPT, max_new=MOE_GEN_NEW,
+        seq_len=seq_len, window=0, dtype="float32",
+        weights="serve_moe's, random from a seed",
+        decode_capacity=moe.capacity(cfg, GEN_BATCH),
+        prefill_capacity=moe.capacity(cfg, GEN_BATCH * GEN_PROMPT),
+        flash_launches_prefill=prefill_flash,
+        flash_launches_decode=decode_flash, launches=counts,
+        plain_flash_calls=plain, generate_wall_s=wall_s,
+        prefill_s=prefill_ms / 1e3, decode_step_ms=step_ms,
+        decode_step_ms_median_2_to_15=median_ms,
+        tokens_per_s=GEN_BATCH * 1e3 / median_ms,
+        decode_bytes_weights=weight_bytes, decode_bytes_kv_cache=cache_bytes,
+        decode_step_bound_ms=bound_ms, decode_step_bound_by="bytes",
+        decode_step_over_bound=median_ms / bound_ms,
+        prefill_logits_equal_last_logits=True, decode_repeats_bits=True,
+        decode_dropped_pick_share_by_layer=drop_share,
+        memory_at_start_bytes=at_start, peak_memory_bytes=peak,
+        check_s=check_s, tokens_first_row=tokens[0].tolist(),
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return counts
+
+
 # ----------------------------------------------------- LM training path
 def _digest(tensors):
     """Exact fingerprint of f32 tensors' bits: per tensor, the sum of its
@@ -2983,79 +3199,122 @@ def run_train_lm_path(args):
     code = make_code(*LM_CODE)
     batches = _lm_batches(full, code)
     res = {}
-    for label, cfg, opt, spec in (
-            ("qwen3-1.7b Trainer.step", full, nag(LM_NAG_LR), None),
+    for label, opt, spec in (
+            ("qwen3-1.7b Trainer.step", nag(LM_NAG_LR), None),
             # the pipelined step's peak is about 8.4 P + 11 GB (P the
             # parameters' bytes: old and new params and momentum, two
             # wires, one subset's gradients; the activations): 79 GB of the
             # card's 85 at full depth
-            ("qwen3-1.7b pipelined Trainer.step", full,
+            ("qwen3-1.7b pipelined Trainer.step",
              sgd_momentum(LM_SGD_LR, 0.9),
              coding.SchemeSpec(pipelined=True, fuse_apply=True))):
-        pipelined = spec is not None
-        gc.collect()           # the last path's trainer, and any cycles
-        torch.cuda.empty_cache()
-        at_start = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        ckpt_dir = None if pipelined else tempfile.mkdtemp(
-            prefix="chip_smoke_lm_ckpt_")
-        tr = Trainer(cfg, code, opt, spec=spec, seed=SEED, device=DEV,
-                     straggler_source=RandomStragglers(seed=3),
-                     checkpoint_dir=ckpt_dir)
-        torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
-        logs, counts, paths, peak = _lm_run(tr, batches, label,
-                                            drain=pipelined)
-        want = _lm_expected(tr, LM_STEPS, pipelined)
-        _lm_check_run(label, tr, logs, counts, want)
-        steps_ms = [m["wall_ms"] for m in logs[:LM_STEPS]]
-        t0 = time.perf_counter()
-        if pipelined:
-            check = {"fill_drain_equals_sync_bitwise":
-                     _lm_fill_drain_check(tr, batches[0])}
-        else:
-            check = {"decoded_vs_uncoded_grad_rel_norm":
-                     _lm_grad_check(tr, batches[0]),
-                     "tolerance": LM_GRAD_REL_TOL}
-        torch.cuda.synchronize()
-        check["seconds"] = time.perf_counter() - t0
-        check["check_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-        if args.profile and not pipelined:
-            profile_steps(lambda: tr.step(batches[0]),
-                          statistics.median(steps_ms[1:]), label, steps=1)
-        n_params = sum(v.numel() for v in tr.params.values())
-        say(phase="train_lm", path=label, model=cfg.name,
-            n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
-            seq_len=LM_SEQ, code=list(LM_CODE),
-            global_batch=code.num_subsets, steps=LM_STEPS,
-            optimizer="sgd_momentum" if pipelined else "nag",
-            lr=LM_SGD_LR if pipelined else LM_NAG_LR,
-            schedule="gather", packed=True, wire="float32",
-            pipelined=pipelined, fuse_apply=pipelined,
-            reduced={"global_batch": f"{code.num_subsets} sequences, not "
-                                     f"train_4k's 256",
-                     "steps": LM_STEPS, "weights": "random, seeded"},
-            build_s=build_s,
-            losses=[m["loss"] for m in logs],
-            grad_norm=[m["grad_norm"] for m in logs],
-            step_ms=[m["wall_ms"] for m in logs],
-            step_ms_median_after_first=statistics.median(steps_ms[1:]),
-            launches=counts, launches_expected=want,
-            launches_per_step={k: v / LM_STEPS for k, v in counts.items() if v},
-            launches_by_kernel_path=paths,
-            scalar_path_leaves_by_shape=_lm_scalar_leaves(tr),
-            plain_flash_calls=0, memory_at_start_bytes=at_start,
-            peak_memory_bytes=peak,
-            memory_limit_bytes=torch.cuda.get_device_properties(0).total_memory,
-            **check)
-        res[label] = counts
-        if ckpt_dir is not None:
-            try:
-                checkpoint_lm(tr)
-            finally:
-                shutil.rmtree(ckpt_dir, ignore_errors=True)
-        del tr, logs
+        res[label] = _train_lm(args, label, full, code, opt, spec, batches,
+                               checkpoint=spec is None)
     return res
+
+
+def run_train_moe(args):
+    """Coded training of olmoe-1b-7b at full width, 4 of its 16 layers, on
+    4096-token sequences: ``Trainer`` with NAG, code (4, 3, 1, 2), random
+    stragglers, one sequence a subset, 3 steps counted from 0; outside the
+    window the decoded gradient with a straggler against the uncoded one,
+    and one subset's gradient twice, bitwise."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    code = make_code(*LM_CODE)
+    label = f"{MOE_ARCH} Trainer.step"
+    return {label: _train_lm(
+        args, label, cfg, code, nag(LM_NAG_LR), None, _lm_batches(cfg, code),
+        phase="train_moe",
+        reduced={"n_layers": f"{MOE_TRAIN_LAYERS} of 16 (the f32 trainer "
+                             f"at full depth needs about 6.7 x 27.7 GB)"})}
+
+
+def _subset_grad_repeats(tr, batch):
+    """One subset's gradient computed twice gives the same bits (compared
+    through exact digests, one gradient on the card at a time)."""
+    loss_fn = model_api.make_loss(tr.cfg)
+    sub = {key: v[:1] for key, v in batch.items()}
+    digests = []
+    for _ in range(2):
+        p = {k: v.detach().requires_grad_(True) for k, v in tr.params.items()}
+        lval = loss_fn(p, sub)
+        g = torch.autograd.grad(lval, list(p.values()))
+        digests.append((_digest([lval.detach().reshape(1)]), _digest(g)))
+        del g, lval
+    if digests[0] != digests[1]:
+        fail(f"{tr.cfg.name}: one subset's gradient differs between two calls")
+    return True
+
+
+def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
+              checkpoint=False, reduced=None):
+    """One LM training path: build the ``Trainer``, its steps counted from
+    0, the checks outside the window, the phase line; returns the counts."""
+    pipelined = spec is not None
+    gc.collect()           # the last path's trainer, and any cycles
+    torch.cuda.empty_cache()
+    at_start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_") \
+        if checkpoint else None
+    tr = Trainer(cfg, code, opt, spec=spec, seed=SEED, device=DEV,
+                 straggler_source=RandomStragglers(seed=3),
+                 checkpoint_dir=ckpt_dir)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    logs, counts, paths, peak = _lm_run(tr, batches, label, drain=pipelined)
+    want = _lm_expected(tr, LM_STEPS, pipelined)
+    _lm_check_run(label, tr, logs, counts, want)
+    steps_ms = [m["wall_ms"] for m in logs[:LM_STEPS]]
+    t0 = time.perf_counter()
+    if pipelined:
+        check = {"fill_drain_equals_sync_bitwise":
+                 _lm_fill_drain_check(tr, batches[0])}
+    else:
+        check = {"decoded_vs_uncoded_grad_rel_norm":
+                 _lm_grad_check(tr, batches[0]),
+                 "tolerance": LM_GRAD_REL_TOL}
+    if cfg.family == "moe":
+        check["subset_grad_repeats_bits"] = _subset_grad_repeats(tr, batches[0])
+    torch.cuda.synchronize()
+    check["seconds"] = time.perf_counter() - t0
+    check["check_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    if args.profile and not pipelined:
+        profile_steps(lambda: tr.step(batches[0]),
+                      statistics.median(steps_ms[1:]), label, steps=1)
+    n_params = sum(v.numel() for v in tr.params.values())
+    say(phase=phase, path=label, model=cfg.name,
+        n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
+        seq_len=LM_SEQ, code=[code.n, code.d, code.s, code.m],
+        global_batch=code.num_subsets, steps=LM_STEPS,
+        optimizer="sgd_momentum" if pipelined else "nag",
+        lr=LM_SGD_LR if pipelined else LM_NAG_LR,
+        schedule="gather", packed=True, wire="float32",
+        pipelined=pipelined, fuse_apply=pipelined,
+        reduced={"global_batch": f"{code.num_subsets} sequences, not "
+                                 f"train_4k's 256",
+                 "steps": LM_STEPS, "weights": "random, seeded",
+                 **(reduced or {})},
+        build_s=build_s,
+        losses=[m["loss"] for m in logs],
+        grad_norm=[m["grad_norm"] for m in logs],
+        step_ms=[m["wall_ms"] for m in logs],
+        step_ms_median_after_first=statistics.median(steps_ms[1:]),
+        launches=counts, launches_expected=want,
+        launches_per_step={k: v / LM_STEPS for k, v in counts.items() if v},
+        launches_by_kernel_path=paths,
+        scalar_path_leaves_by_shape=_lm_scalar_leaves(tr),
+        plain_flash_calls=0, memory_at_start_bytes=at_start,
+        peak_memory_bytes=peak,
+        memory_limit_bytes=torch.cuda.get_device_properties(0).total_memory,
+        nvidia_smi=nvidia_smi_line(), **check)
+    if ckpt_dir is not None:
+        try:
+            checkpoint_lm(tr)
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del tr, logs
+    return counts
 
 
 # --------------------------------------------------------------------- main
@@ -3113,11 +3372,13 @@ def main():
                                         out_dtype=torch.bfloat16)],
         "coded_encode_2d": [measure("encode", (4, 4194304, 2)),
                             measure("encode", (1, 171737, 2), dtype=torch.bfloat16,
-                                    out_dtype=torch.bfloat16)],
+                                    out_dtype=torch.bfloat16),
+                            measure("encode", MOE_ENC)],
         "coded_encode_3d": [measure("encode", (4, 3072, 2, 2048))],
         "coded_decode_2d": [measure("decode", (8, 4194304), m=2),
                             measure("decode", (8, 4194304), m=2,
-                                    dtype=torch.bfloat16)],
+                                    dtype=torch.bfloat16),
+                            measure("decode", MOE_DEC[:2], m=MOE_DEC[2])],
         "coded_decode_3d": [measure("decode", (8, 3072, 2048), m=2,
                                     dtype=torch.bfloat16)],
     }
@@ -3141,6 +3402,12 @@ def main():
     counts["logistic-paper Trainer resumed from a checkpoint"] = \
         run_checkpoint_resume(args)
     counts.update(run_train_lm_path(args))
+    # the MoE phases, after train_lm has freed its trainer
+    counts[f"{MOE_ARCH} CodedServer.step"], _, params = run_serve_path(
+        args, MOE_ARCH, MOE_SERVE_BATCHES, phase="serve_moe")
+    counts[f"{MOE_ARCH} BatchedEngine.generate"] = run_generate_moe(args, params)
+    del params
+    counts.update(run_train_moe(args))
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined

@@ -10,6 +10,8 @@ _MODULES = {
     "qwen3-8b": "qwen3_8b",
     "qwen3-1.7b": "qwen3_1p7b",
     "granite-34b": "granite_34b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "grok-1-314b": "grok_1_314b",
     "logistic-paper": "logistic_paper",
 }
 

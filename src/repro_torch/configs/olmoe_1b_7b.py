@@ -1,0 +1,11 @@
+"""olmoe-1b-7b [moe] — 16L, d_model=2048, 16 heads (kv=16), expert d_ff=1024,
+vocab=50304, MoE 64 experts top-8 [arXiv:2409.02060]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b", family="moe",
+    n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16,
+    d_ff=1024, vocab=50304, head_dim=128, qk_norm=True,
+    n_experts=64, top_k=8,
+    source="arXiv:2409.02060",
+)

@@ -1,9 +1,10 @@
 """Uniform model interface over the families ported so far (``linear``,
-``dense``).
+``dense``, ``moe``); ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` are not
+ported yet and raise ``NotImplementedError``.
 
 - ``init(cfg, device, generator)``: the parameter dict on ``device``.
 - ``make_loss(cfg)``: ``fn(params, batch) -> scalar``; ``batch`` is always a
-  dict (x/y for linear, tokens/labels for dense).
+  dict (x/y for linear, tokens/labels for the LM families).
 - ``make_prefill(cfg, cache_len, window)``: ``fn(params, batch) ->
   (last-token logits, cache)`` for the LM families.
 - ``make_forward(cfg, window)``: ``fn(params, batch) -> per-request output``,
@@ -18,10 +19,11 @@ from __future__ import annotations
 import torch
 
 from .._device import resolve_device
-from . import dense, linear
+from . import dense, linear, moe
 
 _FAMILY = {
     "dense": dense,
+    "moe": moe,
     "linear": linear,
 }
 

@@ -78,10 +78,17 @@ def loss(params: dict, cfg, batch: dict) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------- serving
+def _mlp(lp: dict, cfg, h: torch.Tensor) -> torch.Tensor:
+    """The dense block's feed-forward: SwiGLU."""
+    return cm.swiglu(lp["mlp"], h)
+
+
 def _run_prompt(params: dict, cfg, tokens: torch.Tensor, window: int,
-                keep_kv=None) -> torch.Tensor:
+                keep_kv=None, ffn=_mlp) -> torch.Tensor:
     """The prompt through every layer; returns the last-token logits (B, V)
-    and hands each layer's (k, v) to ``keep_kv`` when one is given."""
+    and hands each layer's (k, v) to ``keep_kv`` when one is given.
+    ``ffn(lp, cfg, h)`` is the block's feed-forward (the MoE family passes
+    its expert layer)."""
     x = cm.embed_tokens(params["embed"], tokens, cm.cdtype(cfg))
     pos = _positions(tokens)
     mk = "window" if window else "causal"
@@ -90,7 +97,7 @@ def _run_prompt(params: dict, cfg, tokens: torch.Tensor, window: int,
             lp["attn"], cfg, cm.rms_norm(x, lp["ln1"]), pos, mask_kind=mk,
             window=window)
         x = x + y
-        x = x + cm.swiglu(lp["mlp"], cm.rms_norm(x, lp["ln2"]))
+        x = x + ffn(lp, cfg, cm.rms_norm(x, lp["ln2"]))
         if keep_kv is not None:
             keep_kv(k, v)
     x = cm.rms_norm(x[:, -1:], params["ln_f"])
@@ -98,10 +105,10 @@ def _run_prompt(params: dict, cfg, tokens: torch.Tensor, window: int,
 
 
 def last_logits(params: dict, cfg, tokens: torch.Tensor, *,
-                window: int = 0) -> torch.Tensor:
+                window: int = 0, ffn=_mlp) -> torch.Tensor:
     """``prefill``'s last-token logits (B, V), bit for bit, without building
     the cache: the stateless forward that coded serving replicates."""
-    return _run_prompt(params, cfg, tokens, window)
+    return _run_prompt(params, cfg, tokens, window, ffn=ffn)
 
 
 def cache_spec(cfg, B: int, S: int, *, window: int = 0) -> dict:
@@ -122,13 +129,14 @@ def init_cache(cfg, B: int, S: int, *, window: int = 0,
 
 
 def prefill(params: dict, cfg, tokens: torch.Tensor, cache_len: int, *,
-            window: int = 0):
+            window: int = 0, ffn=_mlp):
     """Run the prompt, return (last-token logits (B, V), filled cache).
 
     The cache is ``{"k": (L, B, slots, Hkv, hd), "v": ..., "pos": S}`` with
     ``slots = min(cache_len, window)`` for a sliding window (only the last
     ``window`` positions are kept, rolled into ring order) and
-    ``cache_len`` otherwise (zero-padded past the prompt).
+    ``cache_len`` otherwise (zero-padded past the prompt).  ``ffn`` as in
+    ``_run_prompt``.
     """
     slots = min(cache_len, window) if window else cache_len
     ks, vs = [], []
@@ -137,7 +145,7 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, cache_len: int, *,
         ks.append(cm.pack_cache(k, slots, window))
         vs.append(cm.pack_cache(v, slots, window))
 
-    logits = _run_prompt(params, cfg, tokens, window, keep_kv)
+    logits = _run_prompt(params, cfg, tokens, window, keep_kv, ffn)
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
              "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
                                  device=logits.device)}
@@ -145,7 +153,7 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, cache_len: int, *,
 
 
 def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor, *,
-                window: int = 0):
+                window: int = 0, ffn=_mlp):
     """One decode step.  token: (B,) int; cache from ``init_cache`` or
     ``prefill``, with ``cache["pos"]`` the absolute position of the token
     being written (a 0-d int32 tensor on the device).
@@ -155,6 +163,7 @@ def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor, *,
     same tensors come back, with ``pos`` advanced by one (the reference
     donates the cache to a functional update; copying it a token would
     double the step's memory traffic).  Pass a clone to keep the old one.
+    ``ffn`` as in ``_run_prompt``.
     """
     with torch.no_grad():
         pos = cache["pos"]
@@ -166,7 +175,7 @@ def decode_step(params: dict, cfg, cache: dict, token: torch.Tensor, *,
                                           cm.rms_norm(x, lp["ln1"]), kc, vc,
                                           pos, window=window)
             x = x + y
-            x = x + cm.swiglu(lp["mlp"], cm.rms_norm(x, lp["ln2"]))
+            x = x + ffn(lp, cfg, cm.rms_norm(x, lp["ln2"]))
         x = cm.rms_norm(x, params["ln_f"])
         logits = cm.unembed(x, params["unembed"])[:, 0]
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

@@ -808,3 +808,57 @@ def test_checkpoint_round_trip_of_card_tensors(tmp_path, dtype):
         if a.dtype == torch.bfloat16:
             a, b = a.view(torch.int16), b.view(torch.int16)
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_moe_scatter_on_the_card_matches_the_cpu_and_repeats_its_bits():
+    """``moe_ffn_scatter`` on a batch that forces drops (one row repeated:
+    16 picks of each of 2 experts against ``C = 10``): the routing on the
+    card equals the CPU's exactly, ``y`` and ``aux`` agree at f32
+    tolerance, and two calls on the card, forward and backward, give the
+    same bits (no atomics in the dispatch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("olmoe-1b-7b").reduced()
+    params = api.init(cfg, "cpu", torch.Generator().manual_seed(0))
+    lp = cm.layer_list(params, "layers/", cfg.n_layers)[0]
+    row = torch.randn(1, 1, cfg.d_model, generator=torch.Generator()
+                      .manual_seed(1))
+    x = row.expand(1, 16, cfg.d_model).contiguous()
+    xt = x.reshape(16, cfg.d_model)
+    C = moe.capacity(cfg, 16)
+    routes = {}
+    for dev in ("cpu", "cuda"):
+        _, _, eidx = moe.route(lp["router"].to(dev), cfg.top_k, xt.to(dev))
+        routes[dev] = moe.dispatch(eidx, cfg.n_experts, C)
+    for a, b in zip(routes["cpu"], routes["cuda"]):
+        assert torch.equal(a, b.cpu())
+    assert int((~routes["cuda"].keep).sum()) == 12
+    with torch.no_grad():
+        want_y, want_aux = moe.moe_ffn_scatter(lp, cfg, x)
+    lp_card = {k: ({kk: vv.cuda() for kk, vv in v.items()}
+                   if isinstance(v, dict) else v.cuda())
+               for k, v in lp.items()}
+    runs = []
+    for _ in range(2):
+        leaves = {"x": x.cuda().requires_grad_(True),
+                  "router": lp_card["router"].detach().requires_grad_(True),
+                  **{k: v.detach().requires_grad_(True)
+                     for k, v in lp_card["moe"].items()}}
+        y, aux = moe.moe_ffn_scatter(
+            {"router": leaves["router"],
+             "moe": {k: leaves[k] for k in lp_card["moe"]}}, cfg, leaves["x"])
+        dy = torch.linspace(-1, 1, y.numel(), device="cuda").reshape(y.shape)
+        grads = torch.autograd.grad((y * dy).sum() + aux, list(leaves.values()))
+        runs.append((y.detach(), aux.detach(), grads))
+    torch.testing.assert_close(runs[0][0].cpu(), want_y, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(runs[0][1].cpu(), want_aux, rtol=2e-5,
+                               atol=2e-5)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))

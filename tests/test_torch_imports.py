@@ -37,7 +37,9 @@ def test_every_module_imports_without_jax_or_the_reference():
             "repro_torch.tune.arrivals", "repro_torch.elastic",
             "repro_torch.elastic.events", "repro_torch.elastic.tracker",
             "repro_torch.elastic.trainer", "repro_torch.launch",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.models.moe",
+            "repro_torch.configs.olmoe_1b_7b",
+            "repro_torch.configs.grok_1_314b"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -103,6 +105,8 @@ def _entry_points():
         "make_local_comm": lambda: comm.make_local_comm(4),
         "models.api.init": lambda: api.init(cfg),
         "models.api.init(dense)": lambda: api.init(lm),
+        "models.api.init(moe)":
+            lambda: api.init(get_config("olmoe-1b-7b").reduced()),
         "CodedServer": lambda: CodedServer(lm, code, {}),
         "make_coded_forward": lambda: make_coded_forward(lm, code),
         "BatchedEngine": lambda: BatchedEngine(lm, {}, batch=2, seq_len=8),
@@ -122,7 +126,8 @@ def _entry_points():
                                   "make_coded_train_step",
                                   "make_codec", "SchemeSpec.make_codec",
                                   "make_local_comm", "models.api.init",
-                                  "models.api.init(dense)", "CodedServer",
+                                  "models.api.init(dense)",
+                                  "models.api.init(moe)", "CodedServer",
                                   "make_coded_forward", "BatchedEngine",
                                   "build_serve_artifacts",
                                   "models.api.init_cache",

@@ -170,6 +170,57 @@ def test_logistic_follows_the_reference_launcher(monkeypatch, capsys,
                                    rtol=1e-4, atol=1e-5)
 
 
+def test_olmoe_follows_the_reference_launcher(monkeypatch, capsys):
+    """``--arch olmoe-1b-7b`` (reduced) on both launchers with the default
+    flags otherwise: the port's trainer starts from the reference's
+    parameters (its seed-0 ``init``, carried across with ``convert``); each
+    step's stragglers and decode inputs are equal, the losses agree at rtol
+    1e-4, and so does the final line."""
+    import jax
+    import repro.models.api as japi
+    import repro_torch.models.api as tapi
+    from repro_torch import convert
+
+    jcfg = _jget_config("olmoe-1b-7b").reduced()
+    start = jax.tree.map(np.asarray, japi.init(jax.random.PRNGKey(0), jcfg))
+    monkeypatch.setattr(tapi, "init", lambda cfg, device, gen=None:
+                        convert.params_from_jax(start, device=device))
+    seen = {"jax": [], "torch": []}
+    for side, mod in (("jax", jtrainer_mod), ("torch", ttrainer_mod)):
+        def rec(code, stragglers=(), *a, _orig=mod.make_step_inputs,
+                _side=side, **kw):
+            out = _orig(code, stragglers, *a, **kw)
+            seen[_side].append((tuple(int(i) for i in stragglers),
+                                {k: np.asarray(v).copy()
+                                 for k, v in out.items()}))
+            return out
+        monkeypatch.setattr(mod, "make_step_inputs", rec)
+    jlogs = []
+    jrun = jtrain.Trainer.run
+
+    def run(self, *a, **k):
+        jlogs.extend(jrun(self, *a, **k))
+        return jlogs
+
+    flags = ["--arch", "olmoe-1b-7b", "--steps", "2"]
+    monkeypatch.setattr(jtrain.Trainer, "run", run)
+    monkeypatch.setattr(sys, "argv", ["train.py"] + flags)
+    jlaunch.main()
+    jline = capsys.readouterr().out.splitlines()[-1]
+    logs = tlaunch.main(flags + ["--device", "cpu"])
+    assert capsys.readouterr().out.splitlines()[-1] == jline
+    assert len(jlogs) == len(logs) == len(seen["jax"]) == len(seen["torch"]) \
+        == 2
+    for (js, ji), (ts, ti) in zip(seen["jax"], seen["torch"]):
+        assert ts == js and ti.keys() == ji.keys()
+        for k in ji:
+            np.testing.assert_array_equal(ti[k], ji[k], err_msg=k)
+    np.testing.assert_allclose([m["loss"] for m in logs],
+                               [float(m["loss"]) for m in jlogs], rtol=1e-4)
+    assert jline.startswith("final loss ") and jline.endswith(
+        "(coded fraction 1.000)")
+
+
 def test_model_axis_other_than_one_is_refused(capsys):
     with pytest.raises(SystemExit) as e:
         tlaunch.main(["--n-model", "2", "--device", "cpu"])

@@ -395,7 +395,7 @@ def test_synthetic_data_equals_reference_exactly():
     assert dataclasses.asdict(tget_config("logistic-paper")) == \
         dataclasses.asdict(jget_config("logistic-paper"))
     with pytest.raises(KeyError):
-        tget_config("olmoe-1b-7b")
+        tget_config("xlstm-350m")
 
 
 def test_straggler_sources_equal_reference():

@@ -3,6 +3,7 @@
 its per-layer host syncs, on one NVIDIA GPU (written for an H100):
 
     python3 tools/decode_step_ab.py [--steps 16] [--rounds 2]
+                                    [--old-dense OLD_DENSE_PY]
 
 "sync" puts back the two helpers as they were before the decode was
 ported: ``apply_rope`` copied its frequencies from the host on every call
@@ -17,11 +18,17 @@ logits must be the same bits both ways.  Timed in turns (sync, package,
 package, sync for each round): each step's time between CUDA events
 recorded as it is enqueued, median over the run.  Prints one JSON line a
 round, then the card's name and power limit as ``nvidia-smi`` gives them.
+
+``--old-dense`` takes an earlier ``src/repro_torch/models/dense.py`` (for
+instance from ``git show <commit>:src/repro_torch/models/dense.py``) and
+times its ``decode_step`` as "old" in place of "sync", against the
+package's, in the same turns and with the same bits required.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib.util
 import json
 import pathlib
 import statistics
@@ -79,9 +86,19 @@ def with_syncs():
         cm.apply_rope, cm.gqa_scores_attend = old
 
 
-def run(params, cfg, cache, tok, steps):
-    """``steps`` decode steps from position PROMPT; per-step ms, first
-    logits."""
+def load_old_dense(path):
+    """An earlier ``dense.py`` as a module of the package (its relative
+    imports resolve to the package's ``common`` and ``convert``)."""
+    spec = importlib.util.spec_from_file_location(
+        "repro_torch.models._old_dense", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run(params, cfg, cache, tok, steps, mod=dense):
+    """``steps`` decode steps of ``mod`` from position PROMPT; per-step ms,
+    first logits."""
     cache["pos"] = torch.tensor(PROMPT, dtype=torch.int32, device=tok.device)
     events, first = [], None
     torch.cuda.synchronize()
@@ -91,7 +108,7 @@ def run(params, cfg, cache, tok, steps):
         events.append(ev)
         if i == steps:
             break
-        logits, cache = dense.decode_step(params, cfg, cache, tok)
+        logits, cache = mod.decode_step(params, cfg, cache, tok)
         if first is None:
             first = logits
     torch.cuda.synchronize()
@@ -102,6 +119,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--old-dense", default=None,
+                    help="an earlier models/dense.py, timed as 'old' in "
+                         "place of the host syncs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("decode_step_ab: needs a CUDA device", file=sys.stderr)
@@ -117,17 +137,23 @@ def main():
         logits, cache = dense.prefill(params, cfg, prompts,
                                       PROMPT + args.steps)
     tok = logits.argmax(-1).to(torch.int32)
-    run(params, cfg, cache, tok, 2)                      # warm both ways
-    with with_syncs():
-        run(params, cfg, cache, tok, 2)
+    old = load_old_dense(args.old_dense) if args.old_dense else None
+    other = "old" if old else "sync"
+
+    def timed(mode, steps):
+        with (with_syncs() if mode == "sync" else contextlib.nullcontext()):
+            return run(params, cfg, cache, tok, steps,
+                       old if mode == "old" else dense)
+
+    timed("package", 2)                                  # warm both ways
+    timed(other, 2)
     for r in range(args.rounds):
         res = {}
-        for mode in ("sync", "package", "package", "sync"):
-            with (with_syncs() if mode == "sync" else contextlib.nullcontext()):
-                ms, first = run(params, cfg, cache, tok, args.steps)
+        for mode in (other, "package", "package", other):
+            ms, first = timed(mode, args.steps)
             res.setdefault(mode, []).append(statistics.median(ms))
             res.setdefault(f"{mode}_first", first)
-        same = torch.equal(res.pop("sync_first").view(torch.int32),
+        same = torch.equal(res.pop(f"{other}_first").view(torch.int32),
                            res.pop("package_first").view(torch.int32))
         if not same:
             print("decode_step_ab: the two ways give other bits",
