@@ -164,11 +164,44 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            gradient with a straggler against the uncoded one, and one
            subset's gradient twice, bitwise (the dispatch sums in a fixed
            order: no atomics)
+  serve_vlm
+           the serve phase on ``internvl2-26b`` (the VLM family: the
+           InternLM2 backbone at full width, d_model 6144, 48 query heads on
+           8 KV heads of 128, d_ff 16384, vocab 92553; random f32 weights
+           from a seed) at 12 of its 48 layers (cut: 79.4 GB of f32 weights
+           at full depth), code (4, 3, 1, 2), one request a subset, each
+           256 seeded f32 patch embeddings and 4096 tokens (4352
+           positions), 2 batches: 144 flash launches, 12 encodes and 1
+           decode a batch, all on the vector path; each subset against its
+           own prompt's uncoded forward; the hedge bitwise
+  generate_vlm
+           ``BatchedEngine`` on serve_vlm's weights: 4 prompts of 4096
+           tokens after 256 zero patches (the reference engine's), 16
+           greedy tokens; 12 flash launches in the prefill and 0 in the
+           decode; outside the window the prefill's logits against
+           ``last_logits`` bitwise, and decode step 0 against each prompt's
+           full forward with its first token (materialized softmax,
+           rtol = atol = 2e-4); a decode step's median ms against its byte
+           bound
+  train_vlm
+           the synchronous ``Trainer`` of train_lm on ``internvl2-26b`` at
+           full width and 2 of its 48 layers (7.67 GB of weights), one
+           sequence of 256 patch embeddings and 4096 tokens a subset, the
+           loss on the text positions, NAG, 3 steps counted as train_lm's;
+           outside the window the decoded gradient with a straggler against
+           the uncoded one, and one subset's gradient twice, bitwise.  The
+           3D encodes of the leaves whose trailing elements are no whole
+           number of 16-byte vectors (the embedding and unembedding, whose
+           rows of the odd vocabulary 92553 are cut by their grouping dim,
+           and the 2-layer norms) take the scalar path, exactly as many as
+           those shapes imply; every other coding launch the vector path
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
 online-softmax loop) at the sweep of tests/test_kernels.py, at the serving
-shape, with a window and a query offset, at hd 32 and 64 with a ragged S,
+shapes (qwen3-1.7b's and olmoe-1b-7b's at 4096 tokens, internvl2-26b's
+q_per_kv = 6 at 4352 positions, one prompt and the 4-prompt generate
+prefill), with a window and a query offset, at hd 32 and 64 with a ragged S,
 q_per_kv = 4, B > 1 with a window and an offset, and on views of one fused
 projection; check what it refuses (TMA alignment) and that under grad mode it is
 differentiable; and time it beside ``scaled_dot_product_attention`` in
@@ -304,6 +337,13 @@ MOE_SERVE_BATCHES = 2          # batches the serve_moe phase steps
 MOE_GEN_NEW = 16               # greedy tokens a prompt in generate_moe
 MOE_TRAIN_LAYERS = 4           # of 16: coded training at full depth needs
                                # about 6.7 x its 27.7 GB of f32 parameters
+VLM_ARCH = "internvl2-26b"     # the VLM phases' model
+VLM_SERVE_LAYERS = 12          # of 48: 23.3 GB of f32 weights (79.4 at 48)
+VLM_TRAIN_LAYERS = 2           # of 48: the trainer needs about 6.7 x 7.67 GB
+VLM_SERVE_BATCHES = 2          # batches the serve_vlm phase steps
+VLM_GEN_NEW = 16               # greedy tokens a prompt in generate_vlm
+# positions of a VLM prompt: its patch embeddings, then SERVE_SEQ tokens
+VLM_SEQ = get_config(VLM_ARCH).n_frontend_tokens + SERVE_SEQ
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 HOST_CALLS = 200               # calls of one host-cost measurement
 
@@ -357,12 +397,16 @@ def _serve_codec_shapes(code_nsdm=SERVE_CODE, arch="qwen3-1.7b"):
 
 SERVE_ENC, SERVE_DEC = _serve_codec_shapes()
 MOE_ENC, MOE_DEC = _serve_codec_shapes(SERVE_CODE, MOE_ARCH)
+VLM_ENC, VLM_DEC = _serve_codec_shapes(SERVE_CODE, VLM_ARCH)
+# the 3D encode of the VLM's unembedding gradient (6144, 92553), grouped on
+# its first dim: rows of an odd R, so the scalar path by shape
+VLM_UNEMBED_ENC = (1, 3072, 2, 92553)
 ENC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (8, 1024, 8), (31, 96, 3),
-         (2, 1001, 7), (1, 171737, 2), SERVE_ENC, MOE_ENC]
+         (2, 1001, 7), (1, 171737, 2), SERVE_ENC, MOE_ENC, VLM_ENC]
 ENC3D = [(3, 16, 2, 128), (4, 256, 2, 64), (2, 40, 5, 96), (2, 7, 3, 33),
          (1, 3072, 2, 2048)]
 DEC2D = [(4, 64, 2), (16, 512, 3), (32, 96, 8), (10, 1280, 1), (12, 1001, 19),
-         (64, 77, 32), (8, 171776, 2), SERVE_DEC, MOE_DEC]
+         (64, 77, 32), (8, 171776, 2), SERVE_DEC, MOE_DEC, VLM_DEC]
 DEC3D = [(4, 32, 2, 128), (16, 128, 4, 64), (5, 9, 11, 17), (8, 3072, 2048)]
 ACC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (2, 1001, 7), (1, 171737, 2)]
 ACC3D = [(2, 7, 3, 33), (2, 40, 5, 96), (3, 16, 2, 128), (1, 3072, 2, 2048)]
@@ -638,14 +682,16 @@ def _apply_kernels_per_call(gen):
 
 # (B, S, H, Hkv, hd, mask_kind, window, query offset): the sweep of
 # tests/test_kernels.py, the serving shapes (qwen3-1.7b's GQA, olmoe-1b-7b's
-# MHA: q_per_kv = 1 at hd 128, also its training shape), a window and a
-# query offset; then the edges of the tensor-core kernel: hd 32 and 64 with
-# a ragged S (a last key tile and query tile cut short), q_per_kv = 4, and
-# B > 1 with a window and a query offset
+# MHA: q_per_kv = 1 at hd 128, also its training shape; internvl2-26b's
+# q_per_kv = 6 over 256 patches and 4096 tokens, served and trained), a
+# window and a query offset; then the edges of the tensor-core kernel: hd
+# 32 and 64 with a ragged S (a last key tile and query tile cut short),
+# q_per_kv = 4, and B > 1 with a window and a query offset
 FLASH = [(2, 256, 4, 2, 64, "causal", 0, 0), (1, 128, 2, 2, 32, "full", 0, 0),
          (2, 256, 4, 4, 64, "window", 64, 0), (1, 192, 4, 1, 128, "causal", 0, 0),
          (1, SERVE_SEQ, 16, 8, 128, "causal", 0, 0),
          (1, SERVE_SEQ, 16, 16, 128, "causal", 0, 0),
+         (1, VLM_SEQ, 48, 8, 128, "causal", 0, 0),
          (1, 1024, 16, 8, 128, "window", 256, 0),
          (2, 200, 8, 2, 128, "causal", 0, 312),
          (1, 200, 4, 2, 32, "causal", 0, 0), (1, 200, 4, 2, 64, "causal", 0, 0),
@@ -660,9 +706,11 @@ FLASH_FUSED = (2, 320, 8, 2, 128)
 FLASH_BWD_EDGES = [(1, 1000, 16, 8, 128, "causal", 0, 0),
                    (2, 97, 8, 2, 64, "window", 33, 5),
                    (1, 160, 8, 2, 32, "window", 48, 16)]
-# the forward's own shape on top of FLASH: olmoe-1b-7b's generate prefill,
-# 4 prompts of 4096 tokens (the grid's batch axis at its largest)
-FLASH_FWD_EDGES = [(GEN_BATCH, GEN_PROMPT, 16, 16, 128, "causal", 0, 0)]
+# the forward's own shapes on top of FLASH: the generate prefills of
+# olmoe-1b-7b and internvl2-26b, 4 prompts of 4096 tokens (after 256
+# patches for the VLM; the grid's batch axis at its largest)
+FLASH_FWD_EDGES = [(GEN_BATCH, GEN_PROMPT, 16, 16, 128, "causal", 0, 0),
+                   (GEN_BATCH, VLM_SEQ, 48, 8, 128, "causal", 0, 0)]
 
 
 FLASH_BF16_REL_NORM = 1e-2
@@ -685,9 +733,10 @@ def _flash_inputs(gen, case, dtype):
 def check_flash(gen):
     """``flash_attention`` against its plain version on the card (f32 and
     bf16), one launch a call; then what the wrapper must refuse.  The
-    errors of the cases at the serving length are kept by case."""
+    errors of the cases at the serving lengths (max abs and relative norm)
+    are kept by case."""
     r = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "cases": 0,
-         "serve_len_max_abs_err": {}}
+         "serve_len_max_abs_err": {}, "serve_len_rel_norm_err": {}}
     for dtype in (F32, torch.bfloat16):
         for case in FLASH + FLASH_FWD_EDGES + [FLASH_FUSED]:
             q, k, v, (kind, w, p0) = _flash_inputs(gen, case, dtype)
@@ -707,8 +756,10 @@ def check_flash(gen):
             e = _close(what, got.to(F32), want.to(F32), TOL[dtype])
             key = "max_abs_err" if dtype == F32 else "max_abs_err_bf16"
             r[key] = max(r[key], e)
-            if case[1] == SERVE_SEQ:
+            if case[1] in (SERVE_SEQ, VLM_SEQ):
                 r["serve_len_max_abs_err"][f"{case[:5]} {dtype}"] = e
+                r["serve_len_rel_norm_err"][f"{case[:5]} {dtype}"] = ((
+                    got.float() - want.float()).norm() / want.float().norm()).item()
             if dtype == torch.bfloat16:
                 # at long S the outputs are small (about 0.03 for S = 4096),
                 # so the elementwise 2e-2 alone is loose: the error's norm
@@ -781,7 +832,8 @@ def _flash_grads(fn, q, k, v, dout, g, kind, w, p0):
 def check_flash_bwd(gen):
     """The backward kernel against the plain version's autograd on the
     card over the forward's sweep (the 4096-token serve shapes with
-    q_per_kv = 2 and 1, a window, query offsets, hd 32 and 64 with ragged S,
+    q_per_kv = 2 and 1, the VLM's 4352 positions with q_per_kv = 6, a
+    window, query offsets, hd 32 and 64 with ragged S,
     views of one fused projection) and the backward's edges
     (FLASH_BWD_EDGES), f32 and bf16: one backward launch a call; the same
     bits on a second call (no atomics); and the forward's output with the
@@ -835,7 +887,7 @@ def check_flash_bwd(gen):
                 else:
                     r["max_rel_norm_err_bf16"] = max(
                         r["max_rel_norm_err_bf16"], rel)
-                if case[1] == SERVE_SEQ:
+                if case[1] in (SERVE_SEQ, VLM_SEQ):
                     by = r["serve_len_max_rel_norm_err"]
                     key = f"{case[:5]} {dtype}"
                     by[key] = max(by.get(key, 0.0), rel)
@@ -1725,20 +1777,34 @@ def run_checkpoint_resume(args):
     return counts
 
 
+def _requests(rng, cfg, rows):
+    """``rows`` requests of SERVE_SEQ tokens from ``rng``, and for a VLM
+    each one's patch embeddings (n_frontend_tokens, d_model) in f32."""
+    req = {"tokens": rng.integers(0, cfg.vocab, (rows, SERVE_SEQ),
+                                  dtype=np.int32)}
+    if cfg.family == "vlm":
+        req["embeds"] = rng.standard_normal(
+            (rows, cfg.n_frontend_tokens, cfg.d_model), dtype=np.float32)
+    return req
+
+
 def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
-                   phase="serve"):
-    """``CodedServer`` on ``arch`` at full width with 4096-token prompts,
-    one prompt a subset.
+                   phase="serve", n_layers=None, reduced=None):
+    """``CodedServer`` on ``arch`` at full width with 4096-token prompts
+    (after their patch embeddings for a VLM), one prompt a subset;
+    ``n_layers`` cuts the depth (listed in the phase line's ``reduced``).
 
     Counted window: the launch counts and the plain flash version's call
     count are set to 0 just before the batches are submitted and read just
-    after the last one is stepped.  Outside it: the uncoded forward of
-    each of the first batch's prompts alone, as the coded forward runs
-    each subset (an MoE forward depends on its batch: the experts'
-    capacity counts its tokens), the hedge, and the straggler-free serve;
-    for an MoE model also the share of picks each layer drops on the first
-    prompt."""
+    after the last one is stepped; every encode and decode must take the
+    vector path.  Outside it: the uncoded forward of each of the first
+    batch's prompts alone, as the coded forward runs each subset (an MoE
+    forward depends on its batch: the experts' capacity counts its
+    tokens), the hedge, and the straggler-free serve; for an MoE model also
+    the share of picks each layer drops on the first prompt."""
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     code = make_code(*SERVE_CODE)
     k = code.num_subsets
     label = f"{cfg.name} CodedServer.step"
@@ -1752,8 +1818,7 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     init_s = time.perf_counter() - t0
     n_params = sum(v.numel() for v in params.values())
     rng = np.random.default_rng(SEED)
-    prompts = rng.integers(0, cfg.vocab, (n_batches * k, SERVE_SEQ),
-                           dtype=np.int32)
+    requests = _requests(rng, cfg, n_batches * k)
     srv = CodedServer(cfg, code, params, batch_per_subset=1, seq_len=SERVE_SEQ,
                       straggler_source=RandomStragglers(seed=2), device=DEV)
     if srv.artifacts.codec.backend.name != "hopper":
@@ -1763,8 +1828,8 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     flash_attn.PLAIN_CALLS["flash_attention"] = 0
-    for row in prompts:
-        srv.submit({"tokens": row})
+    for j in range(n_batches * k):
+        srv.submit({key: v[j] for key, v in requests.items()})
     results, per_batch, step_ms = [], [], []
     before = ops.launch_counts()
     while True:
@@ -1779,7 +1844,7 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
         results.append(res)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    serve_paths = _note_paths(label, require_vector=False)
+    serve_paths = _note_paths(label)
     plain_calls = flash_attn.PLAIN_CALLS["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
     if plain_calls:
@@ -1796,17 +1861,19 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
         if res.failed_rows:
             fail(f"failed request rows {res.failed_rows} within the design s")
     ids = [r.req_id for res in results for r in res.requests]
-    if ids != list(range(1, len(prompts) + 1)):
+    if ids != list(range(1, n_batches * k + 1)):
         fail(f"requests served out of order: {ids}")
 
     # ---- outside the window: the uncoded forward of each of batch 0's
     # prompts alone
-    first = {"tokens": torch.from_numpy(prompts[:k]).to(DEV)}
+    batch0 = {key: v[:k] for key, v in requests.items()}
+    first = {key: torch.from_numpy(v).to(DEV) for key, v in batch0.items()}
     forward = model_api.make_forward(cfg)
     t1 = time.perf_counter()
     with torch.no_grad():
-        direct = torch.cat([forward(params, {"tokens": t[None]})
-                            for t in first["tokens"]])
+        direct = torch.cat([forward(params, {key: v[j:j + 1]
+                                             for key, v in first.items()})
+                            for j in range(k)])
     torch.cuda.synchronize()
     direct_ms = (time.perf_counter() - t1) * 1e3
     direct = direct.cpu().numpy()
@@ -1821,30 +1888,32 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
              f"(max |logit| {scale:.3e}, tolerance {SERVE_REL_TOL} of it)")
     # the hedge: under the pattern's W the straggler's payload never reaches
     # the output bits (its prompts replaced by others: the same bits)
-    hedged = srv.serve_batch({"tokens": prompts[:k]}, stragglers=(1,))
+    hedged = srv.serve_batch(batch0, stragglers=(1,))
     arts = srv.artifacts
     placed = CodedBatcher(code).place(first)
-    other = torch.from_numpy(rng.integers(0, cfg.vocab, (code.d, 1, SERVE_SEQ),
-                                          dtype=np.int32)).to(DEV)
-    placed["tokens"][1] = other
+    for key, v in _requests(rng, cfg, code.d).items():
+        placed[key][1] = torch.from_numpy(v[:, None]).to(DEV)
     inp = arts.step_inputs((1,))
     with torch.no_grad():
         junk = arts.step(params, placed, inp["W"], inp["mask"], inp["rho"])
     junk = junk.cpu().numpy()
     if not np.array_equal(junk, hedged.outputs):
         fail("a straggler's payload changed the decoded bits")
-    full = srv.serve_batch({"tokens": prompts[:k]}, stragglers=())
+    full = srv.serve_batch(batch0, stragglers=())
     diff_full = float(np.abs(full.outputs - hedged.outputs).max())
     if diff_full > SERVE_REL_TOL * max(1.0, scale):
         fail(f"stragglers (1,) and () decode {diff_full:.3e} apart")
     if args.profile:
-        profile_steps(lambda: srv.serve_batch({"tokens": prompts[:k]}),
+        profile_steps(lambda: srv.serve_batch(batch0),
                       statistics.median(r.wall_s * 1e3 for r in results),
                       f"{cfg.name} coded serve batch", steps=1)
-    say(phase=phase, model=cfg.name, n_layers=cfg.n_layers, params=n_params,
+    say(phase=phase, model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, params=n_params,
         param_bytes=sum(v.numel() * v.element_size() for v in params.values()),
         init_s=init_s, code=list(SERVE_CODE), batch_requests=k,
-        seq_len=SERVE_SEQ, batches=len(results),
+        seq_len=SERVE_SEQ, positions=first["tokens"].shape[1] + (
+            cfg.n_frontend_tokens if cfg.family == "vlm" else 0),
+        batches=len(results), **({"reduced": reduced} if reduced else {}),
         stragglers=[list(r.stragglers) for r in results],
         wall_ms=[r.wall_s * 1e3 for r in results], step_ms=step_ms,
         launches_per_batch=per_batch, launches=counts,
@@ -2720,44 +2789,38 @@ class materialized_attention:
         model_common.CHUNK_THRESHOLD = self.old
 
 
-def run_generate_path(args, params):
-    """``BatchedEngine.generate`` on qwen3-1.7b at full width and depth
-    (the serve phase's seeded weights, f32): 4 prompts of 4096 tokens, 32
-    greedy tokens against a dense cache of 4128 positions.
-
-    Counted window: the launch counts are set to 0 just before
-    ``generate`` and read at its prefill's logits and after it.  Outside
-    it: decode steps 0, 1 and 31 against the full-prompt forward of the
-    prompt and the tokens fed so far, with the materialized softmax (the
-    decode's own attention math); the distance to the forward through the
-    flash kernel is printed beside it."""
-    cfg = get_config("qwen3-1.7b")
-    t_phase = time.perf_counter()
-    seq_len = GEN_PROMPT + GEN_NEW
-    prompts = np.random.default_rng(SEED + 11).integers(
-        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
-    eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=seq_len,
-                        device=DEV)
-    events, flash_at, kept = {}, {}, {}
+def _generate_counted(phase, eng, prompts, new, keep=()):
+    """``eng.generate(prompts, new)`` counted from 0: the launch counts and
+    the plain flash version's calls are set to 0 just before it and read at
+    its prefill's logits and after it.  The prefill must launch the flash
+    forward once a layer, the decode never, and nothing else; the tokens
+    must lie in the vocabulary and every step's logits be finite.  Returns
+    the run's record (the prefill's seconds and each decode step's ms from
+    CUDA events, the median of steps 2 on) and the logits of the steps in
+    ``keep`` (-1: the prefill's)."""
+    cfg = eng.cfg
+    events, flash_at, finite, kept = {}, {}, [], {}
 
     def on_logits(t, logits):
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         events[t] = ev
         flash_at[t] = ops.launch_counts()["flash_attention"]
-        if t in GEN_CHECKED:
+        finite.append(torch.isfinite(logits).all())
+        if t in keep:
             kept[t] = logits
 
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    at_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     flash_attn.PLAIN_CALLS["flash_attention"] = 0
     start = torch.cuda.Event(enable_timing=True)
     start.record()
     t0 = time.perf_counter()
-    tokens = eng.generate(prompts, GEN_NEW, on_logits=on_logits)
+    tokens = eng.generate(prompts, new, on_logits=on_logits)
     wall_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     counts = ops.launch_counts()
@@ -2766,19 +2829,64 @@ def run_generate_path(args, params):
     prefill_flash = flash_at[-1]
     decode_flash = counts["flash_attention"] - prefill_flash
     if plain or prefill_flash != cfg.n_layers or decode_flash:
-        fail(f"generate: flash launches {prefill_flash} in the prefill and "
+        fail(f"{phase}: flash launches {prefill_flash} in the prefill and "
              f"{decode_flash} in the decode, plain calls {plain}; expected "
              f"{cfg.n_layers}, 0 and 0")
     want = _expect(flash_attention=cfg.n_layers)
     if counts != want:
-        fail(f"generate: kernel launches {counts}, expected {want}")
-    if tokens.shape != (GEN_BATCH, GEN_NEW) or tokens.dtype != np.int32 or \
+        fail(f"{phase}: kernel launches {counts}, expected {want}")
+    if tokens.shape != (len(prompts), new) or tokens.dtype != np.int32 or \
             not ((tokens >= 0) & (tokens < cfg.vocab)).all():
-        fail(f"generate: tokens of shape {tokens.shape}, type {tokens.dtype} "
+        fail(f"{phase}: tokens of shape {tokens.shape}, type {tokens.dtype} "
              f"or out of [0, {cfg.vocab})")
-    prefill_ms = start.elapsed_time(events[-1])
-    step_ms = [events[t - 1].elapsed_time(events[t]) for t in range(GEN_NEW)]
+    bad = [t for t, f in zip(range(-1, new), finite) if not bool(f)]
+    if bad or len(finite) != new + 1:
+        fail(f"{phase}: non-finite logits at steps {bad}")
+    step_ms = [events[t - 1].elapsed_time(events[t]) for t in range(new)]
     median_ms = statistics.median(step_ms[2:])
+    return {"tokens": tokens, "flash_launches_prefill": prefill_flash,
+            "flash_launches_decode": decode_flash, "launches": counts,
+            "plain_flash_calls": plain, "generate_wall_s": wall_s,
+            "prefill_s": start.elapsed_time(events[-1]) / 1e3,
+            "decode_step_ms": step_ms,
+            f"decode_step_ms_median_2_to_{new - 1}": median_ms,
+            "median_ms": median_ms,
+            "tokens_per_s": len(prompts) * 1e3 / median_ms,
+            "memory_at_start_bytes": at_start, "peak_memory_bytes": peak}, kept
+
+
+def _decode_bound(eng, params):
+    """A decode step's byte bound: every weight but the input embedding
+    (of which it reads B rows) and the KV cache, read once."""
+    weight_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
+                       if k != "embed")
+    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
+                      for shape, dt in eng.arts.cache_shapes.values())
+    return {"decode_bytes_weights": weight_bytes,
+            "decode_bytes_kv_cache": cache_bytes,
+            "decode_step_bound_ms": (weight_bytes + cache_bytes)
+            / HBM_BYTES_PER_S * 1e3, "decode_step_bound_by": "bytes"}
+
+
+def run_generate_path(args, params):
+    """``BatchedEngine.generate`` on qwen3-1.7b at full width and depth
+    (the serve phase's seeded weights, f32): 4 prompts of 4096 tokens, 32
+    greedy tokens against a dense cache of 4128 positions, counted as
+    ``_generate_counted`` says.  Outside the window: decode steps 0, 1 and
+    31 against the full-prompt forward of the prompt and the tokens fed so
+    far, with the materialized softmax (the decode's own attention math);
+    the distance to the forward through the flash kernel is printed beside
+    it."""
+    cfg = get_config("qwen3-1.7b")
+    t_phase = time.perf_counter()
+    seq_len = GEN_PROMPT + GEN_NEW
+    prompts = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+    eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=seq_len,
+                        device=DEV)
+    run, kept = _generate_counted("generate", eng, prompts, GEN_NEW,
+                                  keep=GEN_CHECKED)
+    tokens = run.pop("tokens")
 
     # ---- outside the window: decode logits against the full forward
     errs = {}
@@ -2809,11 +2917,8 @@ def run_generate_path(args, params):
                 torch.from_numpy(tokens[:, t + 1]).long()):
             fail(f"generate: token {t + 1} is not step {t}'s argmax")
     check_s = time.perf_counter() - t1
-    weight_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
-                       if k != "embed")
-    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
-                      for shape, dt in eng.arts.cache_shapes.values())
-    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    bound = _decode_bound(eng, params)
+    median_ms = run.pop("median_ms")
     if args.profile:
         with torch.no_grad():
             _, cache = eng.arts.prefill(eng.params,
@@ -2831,34 +2936,26 @@ def run_generate_path(args, params):
     say(phase="generate", model=cfg.name, n_layers=cfg.n_layers,
         d_model=cfg.d_model, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
         max_new=GEN_NEW, seq_len=seq_len, window=0, dtype="float32",
-        weights="the serve phase's, random from a seed",
-        flash_launches_prefill=prefill_flash, flash_launches_decode=decode_flash,
-        launches=counts, plain_flash_calls=plain,
-        generate_wall_s=wall_s, prefill_s=prefill_ms / 1e3,
-        decode_step_ms=step_ms, decode_step_ms_median_2_to_31=median_ms,
-        tokens_per_s=GEN_BATCH * 1e3 / median_ms,
-        decode_bytes_weights=weight_bytes, decode_bytes_kv_cache=cache_bytes,
-        decode_step_bound_ms=bound_ms, decode_step_bound_by="bytes",
-        decode_step_over_bound=median_ms / bound_ms,
-        peak_memory_bytes=peak, logits_vs_forward=errs, tolerance=GEN_TOL,
+        weights="the serve phase's, random from a seed", **run, **bound,
+        decode_step_over_bound=median_ms / bound["decode_step_bound_ms"],
+        logits_vs_forward=errs, tolerance=GEN_TOL,
         check_s=check_s, tokens_first_row=tokens[0].tolist(),
         seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
-    return counts
+    return run["launches"]
 
 
 def run_generate_moe(args, params):
     """``BatchedEngine.generate`` on olmoe-1b-7b at full width and depth
     (serve_moe's seeded weights, f32): 4 prompts of 4096 tokens, 16 greedy
-    tokens against a dense cache of 4112 positions.
+    tokens against a dense cache of 4112 positions, counted as
+    ``_generate_counted`` says.
 
     A decode step's capacity counts its 4 tokens (``C = 1`` an expert), so
     picks that collide drop and a step's logits are not the full forward's
-    (the reference's semantics): they are not held against it.  Counted
-    window: the launch counts are set to 0 just before ``generate`` and read
-    at its prefill's logits and after it; every step's logits must be
-    finite.  Outside it: the prefill's logits against ``last_logits`` of the
-    same prompts, and two decodes of one step from clones of one cache,
-    both bitwise; the share of picks a decode step drops, by layer."""
+    (the reference's semantics): they are not held against it.  Outside the
+    window: the prefill's logits against ``last_logits`` of the same
+    prompts, and two decodes of one step from clones of one cache, both
+    bitwise; the share of picks a decode step drops, by layer."""
     cfg = get_config(MOE_ARCH)
     t_phase = time.perf_counter()
     seq_len = GEN_PROMPT + MOE_GEN_NEW
@@ -2866,52 +2963,9 @@ def run_generate_moe(args, params):
         0, cfg.vocab, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
     eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=seq_len,
                         device=DEV)
-    events, flash_at, finite, kept = {}, {}, [], {}
-
-    def on_logits(t, logits):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events[t] = ev
-        flash_at[t] = ops.launch_counts()["flash_attention"]
-        finite.append(torch.isfinite(logits).all())
-        if t == -1:
-            kept[t] = logits
-
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    at_start = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    flash_attn.PLAIN_CALLS["flash_attention"] = 0
-    start = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    tokens = eng.generate(prompts, MOE_GEN_NEW, on_logits=on_logits)
-    wall_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    plain = flash_attn.PLAIN_CALLS["flash_attention"]
-    prefill_flash = flash_at[-1]
-    decode_flash = counts["flash_attention"] - prefill_flash
-    if plain or prefill_flash != cfg.n_layers or decode_flash:
-        fail(f"generate_moe: flash launches {prefill_flash} in the prefill "
-             f"and {decode_flash} in the decode, plain calls {plain}; "
-             f"expected {cfg.n_layers}, 0 and 0")
-    want = _expect(flash_attention=cfg.n_layers)
-    if counts != want:
-        fail(f"generate_moe: kernel launches {counts}, expected {want}")
-    if tokens.shape != (GEN_BATCH, MOE_GEN_NEW) or \
-            not ((tokens >= 0) & (tokens < cfg.vocab)).all():
-        fail(f"generate_moe: tokens of shape {tokens.shape} or out of range")
-    bad = [t for t, f in zip(range(-1, MOE_GEN_NEW), finite) if not bool(f)]
-    if bad or len(finite) != MOE_GEN_NEW + 1:
-        fail(f"generate_moe: non-finite logits at steps {bad}")
-    prefill_ms = start.elapsed_time(events[-1])
-    step_ms = [events[t - 1].elapsed_time(events[t])
-               for t in range(MOE_GEN_NEW)]
-    median_ms = statistics.median(step_ms[2:])
+    run, kept = _generate_counted("generate_moe", eng, prompts, MOE_GEN_NEW,
+                                  keep=(-1,))
+    tokens = run.pop("tokens")
 
     # ---- outside the window
     t1 = time.perf_counter()
@@ -2934,11 +2988,8 @@ def run_generate_moe(args, params):
     drop_share = _moe_dropped_share(lambda: eng.arts.decode(
         eng.params, {k: v.clone() for k, v in cache.items()}, tok))
     check_s = time.perf_counter() - t1
-    weight_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
-                       if k != "embed")
-    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
-                      for shape, dt in eng.arts.cache_shapes.values())
-    bound_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    bound = _decode_bound(eng, params)
+    median_ms = run.pop("median_ms")
     if args.profile:
         def one_step():
             eng.arts.decode(eng.params, cache, tok)   # writes slot 4096 again
@@ -2954,21 +3005,105 @@ def run_generate_moe(args, params):
         weights="serve_moe's, random from a seed",
         decode_capacity=moe.capacity(cfg, GEN_BATCH),
         prefill_capacity=moe.capacity(cfg, GEN_BATCH * GEN_PROMPT),
-        flash_launches_prefill=prefill_flash,
-        flash_launches_decode=decode_flash, launches=counts,
-        plain_flash_calls=plain, generate_wall_s=wall_s,
-        prefill_s=prefill_ms / 1e3, decode_step_ms=step_ms,
-        decode_step_ms_median_2_to_15=median_ms,
-        tokens_per_s=GEN_BATCH * 1e3 / median_ms,
-        decode_bytes_weights=weight_bytes, decode_bytes_kv_cache=cache_bytes,
-        decode_step_bound_ms=bound_ms, decode_step_bound_by="bytes",
-        decode_step_over_bound=median_ms / bound_ms,
+        **run, **bound,
+        decode_step_over_bound=median_ms / bound["decode_step_bound_ms"],
         prefill_logits_equal_last_logits=True, decode_repeats_bits=True,
         decode_dropped_pick_share_by_layer=drop_share,
-        memory_at_start_bytes=at_start, peak_memory_bytes=peak,
         check_s=check_s, tokens_first_row=tokens[0].tolist(),
         seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
-    return counts
+    return run["launches"]
+
+
+def run_generate_vlm(args, params):
+    """``BatchedEngine.generate`` on internvl2-26b at full width and
+    serve_vlm's depth cut (its seeded weights, f32): 4 prompts of 4096
+    tokens after 256 zero patch embeddings (the reference engine's), 16
+    greedy tokens against a dense cache of 256 + 4096 + 16 positions,
+    counted as ``_generate_counted`` says.  Outside the window: the
+    prefill's logits against ``last_logits`` of the same batch, bitwise;
+    decode step 0 against the full forward of each prompt and its first
+    greedy token (one prompt at a time) with the materialized softmax, the
+    decode's own attention math, and the distance to the forward through
+    the flash kernel beside it."""
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_SERVE_LAYERS)
+    t_phase = time.perf_counter()
+    P = cfg.n_frontend_tokens
+    seq_len = P + GEN_PROMPT + VLM_GEN_NEW
+    prompts = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+    eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=seq_len,
+                        device=DEV)
+    run, kept = _generate_counted("generate_vlm", eng, prompts, VLM_GEN_NEW,
+                                  keep=(-1, 0))
+    tokens = run.pop("tokens")
+
+    # ---- outside the window
+    t1 = time.perf_counter()
+    toks = torch.from_numpy(np.concatenate([prompts, tokens[:, :1]],
+                                           axis=1)).to(DEV)
+    zeros = torch.zeros((GEN_BATCH, P, cfg.d_model), device=DEV)
+    forward = model_api.make_forward(cfg)
+    with torch.no_grad():
+        last = forward(eng.params, {"tokens": toks[:, :GEN_PROMPT],
+                                    "embeds": zeros})
+    if not torch.equal(last, kept[-1]):
+        fail("generate_vlm: the prefill's logits are not last_logits' bits")
+    del last
+    step0 = {"max_abs_err": 0.0, "max_abs_logit": 0.0,
+             "max_abs_err_vs_flash_forward": 0.0,
+             "flash_forward_vs_materialized": 0.0}
+    for j in range(GEN_BATCH):
+        one = {"tokens": toks[j:j + 1], "embeds": zeros[j:j + 1]}
+        with torch.no_grad(), materialized_attention():
+            want_l = forward(eng.params, one)[0]
+        with torch.no_grad():
+            flash_l = forward(eng.params, one)[0]
+        err = (kept[0][j] - want_l).abs()
+        excess = (err - GEN_TOL * want_l.abs()).max().item()
+        for key, x in (("max_abs_err", err.max()),
+                       ("max_abs_logit", want_l.abs().max()),
+                       ("max_abs_err_vs_flash_forward",
+                        (kept[0][j] - flash_l).abs().max()),
+                       ("flash_forward_vs_materialized",
+                        (flash_l - want_l).abs().max())):
+            step0[key] = max(step0[key], x.item())
+        del want_l, flash_l
+        if not excess <= GEN_TOL:
+            fail(f"generate_vlm: decode step 0's logits of prompt {j} differ "
+                 f"from the full forward past rtol = atol = {GEN_TOL}: {step0}")
+    if not torch.equal(kept[0].argmax(-1).cpu(),
+                       torch.from_numpy(tokens[:, 1]).long()):
+        fail("generate_vlm: token 1 is not decode step 0's argmax")
+    del kept
+    check_s = time.perf_counter() - t1
+    bound = _decode_bound(eng, params)
+    median_ms = run.pop("median_ms")
+    if args.profile:
+        with torch.no_grad():
+            _, cache = eng.arts.prefill(eng.params, {
+                "tokens": toks[:, :GEN_PROMPT], "embeds": zeros})
+        tok = toks[:, GEN_PROMPT].to(torch.int32)
+
+        def one_step():
+            eng.arts.decode(eng.params, cache, tok)   # writes one slot again
+
+        one_step()                     # warm; 3 traced steps after it
+        profile_steps(one_step, median_ms,
+                      f"{cfg.name} BatchedEngine decode step", steps=3)
+        del cache
+    say(phase="generate_vlm", model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        batch=GEN_BATCH, patches=P, prompt_len=GEN_PROMPT,
+        max_new=VLM_GEN_NEW, seq_len=seq_len, window=0, dtype="float32",
+        weights="serve_vlm's, random from a seed; zero patches",
+        reduced={"n_layers": f"{VLM_SERVE_LAYERS} of 48 (serve_vlm's weights)"},
+        **run, **bound,
+        decode_step_over_bound=median_ms / bound["decode_step_bound_ms"],
+        prefill_logits_equal_last_logits=True, step0_vs_forward=step0,
+        tolerance=GEN_TOL, check_s=check_s,
+        tokens_first_row=tokens[0].tolist(),
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return run["launches"]
 
 
 # ----------------------------------------------------- LM training path
@@ -3022,6 +3157,19 @@ def _lm_scalar_leaves(tr):
             if math.prod(shape) % 4:
                 out.append(k)
     return out
+
+
+def _lm_check_paths(label, tr, paths, pipelined):
+    """Every encode and decode of an LM path on the vector path, but the 3D
+    encodes of the leaves whose shape leaves it (``_lm_scalar_leaves``),
+    which take the scalar path each subset and step."""
+    enc = "coded_encode_acc_3d" if pipelined else "coded_encode_3d"
+    n = len(_lm_scalar_leaves(tr)) * tr.code.n * tr.code.d * LM_STEPS
+    want = {enc: n} if n else {}
+    scalar = {k: v["scalar"] for k, v in paths.items() if v["scalar"]}
+    if scalar != want:
+        fail(f"{label}: scalar-path launches {scalar}, the leaves' shapes "
+             f"imply {want}")
 
 
 def _lm_batches(cfg, code):
@@ -3229,6 +3377,24 @@ def run_train_moe(args):
                              f"at full depth needs about 6.7 x 27.7 GB)"})}
 
 
+def run_train_vlm(args):
+    """Coded training of internvl2-26b at full width, 2 of its 48 layers,
+    on sequences of 256 patch embeddings and 4096 tokens: ``Trainer`` with
+    NAG, code (4, 3, 1, 2), random stragglers, one sequence a subset, 3
+    steps counted from 0; outside the window the decoded gradient with a
+    straggler against the uncoded one, and one subset's gradient twice,
+    bitwise."""
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS)
+    code = make_code(*LM_CODE)
+    label = f"{VLM_ARCH} Trainer.step"
+    return {label: _train_lm(
+        args, label, cfg, code, nag(LM_NAG_LR), None, _lm_batches(cfg, code),
+        phase="train_vlm",
+        reduced={"n_layers": f"{VLM_TRAIN_LAYERS} of 48 (the f32 trainer "
+                             f"needs about 6.7 x its weights: 7.67 GB at 2 "
+                             f"layers, 79.4 GB at 48)"})}
+
+
 def _subset_grad_repeats(tr, batch):
     """One subset's gradient computed twice gives the same bits (compared
     through exact digests, one gradient on the card at a time)."""
@@ -3265,6 +3431,7 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
     logs, counts, paths, peak = _lm_run(tr, batches, label, drain=pipelined)
     want = _lm_expected(tr, LM_STEPS, pipelined)
     _lm_check_run(label, tr, logs, counts, want)
+    _lm_check_paths(label, tr, paths, pipelined)
     steps_ms = [m["wall_ms"] for m in logs[:LM_STEPS]]
     t0 = time.perf_counter()
     if pipelined:
@@ -3274,7 +3441,7 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
         check = {"decoded_vs_uncoded_grad_rel_norm":
                  _lm_grad_check(tr, batches[0]),
                  "tolerance": LM_GRAD_REL_TOL}
-    if cfg.family == "moe":
+    if cfg.family in ("moe", "vlm"):
         check["subset_grad_repeats_bits"] = _subset_grad_repeats(tr, batches[0])
     torch.cuda.synchronize()
     check["seconds"] = time.perf_counter() - t0
@@ -3366,19 +3533,23 @@ def main():
     other_shapes = {
         "flash_attention": [measure("flash", (1, SERVE_SEQ, 16, 8, 128),
                                     dtype=torch.bfloat16,
-                                    out_dtype=torch.bfloat16)],
+                                    out_dtype=torch.bfloat16),
+                            measure("flash", (1, VLM_SEQ, 48, 8, 128))],
         "flash_attention_bwd": [measure("flash_bwd", (1, LM_SEQ, 16, 8, 128),
                                         dtype=torch.bfloat16,
-                                        out_dtype=torch.bfloat16)],
+                                        out_dtype=torch.bfloat16),
+                                measure("flash_bwd", (1, VLM_SEQ, 48, 8, 128))],
         "coded_encode_2d": [measure("encode", (4, 4194304, 2)),
                             measure("encode", (1, 171737, 2), dtype=torch.bfloat16,
                                     out_dtype=torch.bfloat16),
-                            measure("encode", MOE_ENC)],
-        "coded_encode_3d": [measure("encode", (4, 3072, 2, 2048))],
+                            measure("encode", MOE_ENC), measure("encode", VLM_ENC)],
+        "coded_encode_3d": [measure("encode", (4, 3072, 2, 2048)),
+                            measure("encode", VLM_UNEMBED_ENC)],
         "coded_decode_2d": [measure("decode", (8, 4194304), m=2),
                             measure("decode", (8, 4194304), m=2,
                                     dtype=torch.bfloat16),
-                            measure("decode", MOE_DEC[:2], m=MOE_DEC[2])],
+                            measure("decode", MOE_DEC[:2], m=MOE_DEC[2]),
+                            measure("decode", VLM_DEC[:2], m=VLM_DEC[2])],
         "coded_decode_3d": [measure("decode", (8, 3072, 2048), m=2,
                                     dtype=torch.bfloat16)],
     }
@@ -3408,6 +3579,16 @@ def main():
     counts[f"{MOE_ARCH} BatchedEngine.generate"] = run_generate_moe(args, params)
     del params
     counts.update(run_train_moe(args))
+    # the VLM phases, each at a depth cut of internvl2-26b
+    counts[f"{VLM_ARCH} CodedServer.step"], _, params = run_serve_path(
+        args, VLM_ARCH, VLM_SERVE_BATCHES, phase="serve_vlm",
+        n_layers=VLM_SERVE_LAYERS,
+        reduced={"n_layers": f"{VLM_SERVE_LAYERS} of 48 (the f32 weights at "
+                             f"full depth are 79.4 GB of the card's 85.0)",
+                 "weights": "random, seeded", "patches": "random, seeded"})
+    counts[f"{VLM_ARCH} BatchedEngine.generate"] = run_generate_vlm(args, params)
+    del params
+    counts.update(run_train_vlm(args))
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined

@@ -12,6 +12,7 @@ _MODULES = {
     "granite-34b": "granite_34b",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "grok-1-314b": "grok_1_314b",
+    "internvl2-26b": "internvl2_26b",
     "logistic-paper": "logistic_paper",
 }
 

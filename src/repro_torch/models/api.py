@@ -1,12 +1,14 @@
 """Uniform model interface over the families ported so far (``linear``,
-``dense``, ``moe``); ``ssm``, ``hybrid``, ``encdec`` and ``vlm`` are not
+``dense``, ``moe``, ``vlm``); ``ssm``, ``hybrid`` and ``encdec`` are not
 ported yet and raise ``NotImplementedError``.
 
 - ``init(cfg, device, generator)``: the parameter dict on ``device``.
 - ``make_loss(cfg)``: ``fn(params, batch) -> scalar``; ``batch`` is always a
-  dict (x/y for linear, tokens/labels for the LM families).
+  dict (x/y for linear, tokens/labels for the LM families, + embeds for
+  vlm).
 - ``make_prefill(cfg, cache_len, window)``: ``fn(params, batch) ->
-  (last-token logits, cache)`` for the LM families.
+  (last-token logits, cache)`` for the LM families (``cache_len`` counts a
+  VLM's patches too).
 - ``make_forward(cfg, window)``: ``fn(params, batch) -> per-request output``,
   the unit of work coded serving shards across replicas.
 - ``make_decode(cfg, window)``: ``fn(params, cache, token) -> (logits,
@@ -19,11 +21,12 @@ from __future__ import annotations
 import torch
 
 from .._device import resolve_device
-from . import dense, linear, moe
+from . import dense, linear, moe, vlm
 
 _FAMILY = {
     "dense": dense,
     "moe": moe,
+    "vlm": vlm,
     "linear": linear,
 }
 
@@ -60,13 +63,16 @@ def make_loss(cfg):
 
 def make_prefill(cfg, cache_len: int, *, window: int = 0):
     """Returns fn(params, batch) -> (last-token logits, cache); batch:
-    ``{"tokens": (B, S)}``."""
+    ``{"tokens": (B, S)}``, + ``"embeds": (B, P, D)`` for vlm."""
     mod = get_module(cfg)
     if not hasattr(mod, "prefill"):
         raise NotImplementedError(
             f"model family {cfg.family!r} has no prefill")
 
     def fn(params, batch):
+        if cfg.family == "vlm":
+            return mod.prefill(params, cfg, batch["tokens"], cache_len,
+                               embeds=batch["embeds"], window=window)
         return mod.prefill(params, cfg, batch["tokens"], cache_len,
                            window=window)
 
@@ -79,12 +85,19 @@ def make_forward(cfg, *, window: int = 0):
     One batched stateless forward pass: for the linear family the ``(B,)``
     logit vector; for the LM families the ``(B, vocab)`` last-token logits
     of a full-prompt prefill, without its cache (coded serving replicates
-    the forward compute, not decode state).
+    the forward compute, not decode state).  A VLM's prompt is its patches
+    and its tokens (the reference's forward prefills into a cache of the
+    tokens' length alone, and raises for every VLM).
     """
     mod = get_module(cfg)
     if cfg.family == "linear":
         def fn(params, batch):
             return mod.logits(params, cfg, batch["x"])
+        return fn
+    if cfg.family == "vlm":
+        def fn(params, batch):
+            return mod.last_logits(params, cfg, batch["tokens"],
+                                   embeds=batch["embeds"], window=window)
         return fn
 
     def fn(params, batch):

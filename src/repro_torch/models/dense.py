@@ -2,7 +2,8 @@
 Python loop over the stacked layers, the training loss with each layer
 recomputed in the backward (the reference's remat'd scan), the full-prompt
 prefill that coded serving runs, and KV-cache decoding (dense or
-sliding-window ring cache)."""
+sliding-window ring cache).  The prompt path takes an optional prefix of
+embeddings before the tokens (the VLM family's patches)."""
 from __future__ import annotations
 
 import torch
@@ -44,21 +45,27 @@ def _block(x, lp, cfg, pos, mask_kind, window):
     return x + cm.swiglu(lp["mlp"], cm.rms_norm(x, lp["ln2"]))
 
 
-def _positions(tokens: torch.Tensor) -> torch.Tensor:
-    B, S = tokens.shape
-    return torch.arange(S, device=tokens.device)[None].expand(B, S)
+def _prompt_rows(params: dict, cfg, tokens: torch.Tensor, embeds=None):
+    """The prompt's input rows (B, P + S, D) and their positions: the
+    embedded tokens, after ``embeds (B, P, D)`` cast to the compute dtype
+    when given (the VLM's patches, ``vlm.py:27-28`` of the reference)."""
+    x = cm.embed_tokens(params["embed"], tokens, cm.cdtype(cfg))
+    if embeds is not None:
+        x = torch.cat([embeds.to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
+    return x, torch.arange(S, device=x.device)[None].expand(B, S)
 
 
 def forward(params: dict, cfg, tokens: torch.Tensor, *, window: int = 0,
-            remat: bool = False) -> torch.Tensor:
-    """tokens: (B, S) -> logits (B, S, V).
+            remat: bool = False, embeds=None) -> torch.Tensor:
+    """tokens: (B, S) -> logits (B, S, V); with ``embeds (B, P, D)`` before
+    the tokens, (B, P + S, V).
 
     ``remat``: run each layer under ``torch.utils.checkpoint`` (the
     reference scans its layers under ``jax.remat``): autograd keeps only
     the layers' inputs, and the backward recomputes one layer at a time
     (the same operations on the same inputs, so the same bits)."""
-    x = cm.embed_tokens(params["embed"], tokens, cm.cdtype(cfg))
-    pos = _positions(tokens)
+    x, pos = _prompt_rows(params, cfg, tokens, embeds)
     mk = "window" if window else "causal"
     for lp in cm.layer_list(params, "layers/", cfg.n_layers):
         if remat:
@@ -84,13 +91,12 @@ def _mlp(lp: dict, cfg, h: torch.Tensor) -> torch.Tensor:
 
 
 def _run_prompt(params: dict, cfg, tokens: torch.Tensor, window: int,
-                keep_kv=None, ffn=_mlp) -> torch.Tensor:
-    """The prompt through every layer; returns the last-token logits (B, V)
-    and hands each layer's (k, v) to ``keep_kv`` when one is given.
-    ``ffn(lp, cfg, h)`` is the block's feed-forward (the MoE family passes
-    its expert layer)."""
-    x = cm.embed_tokens(params["embed"], tokens, cm.cdtype(cfg))
-    pos = _positions(tokens)
+                keep_kv=None, ffn=_mlp, embeds=None) -> torch.Tensor:
+    """The prompt (``embeds``, when given, then ``tokens``) through every
+    layer; returns the last position's logits (B, V) and hands each layer's
+    (k, v) to ``keep_kv`` when one is given.  ``ffn(lp, cfg, h)`` is the
+    block's feed-forward (the MoE family passes its expert layer)."""
+    x, pos = _prompt_rows(params, cfg, tokens, embeds)
     mk = "window" if window else "causal"
     for lp in cm.layer_list(params, "layers/", cfg.n_layers):
         y, k, v = cm.self_attention_with_kv(
@@ -105,10 +111,10 @@ def _run_prompt(params: dict, cfg, tokens: torch.Tensor, window: int,
 
 
 def last_logits(params: dict, cfg, tokens: torch.Tensor, *,
-                window: int = 0, ffn=_mlp) -> torch.Tensor:
+                window: int = 0, ffn=_mlp, embeds=None) -> torch.Tensor:
     """``prefill``'s last-token logits (B, V), bit for bit, without building
     the cache: the stateless forward that coded serving replicates."""
-    return _run_prompt(params, cfg, tokens, window, ffn=ffn)
+    return _run_prompt(params, cfg, tokens, window, ffn=ffn, embeds=embeds)
 
 
 def cache_spec(cfg, B: int, S: int, *, window: int = 0) -> dict:
@@ -129,14 +135,15 @@ def init_cache(cfg, B: int, S: int, *, window: int = 0,
 
 
 def prefill(params: dict, cfg, tokens: torch.Tensor, cache_len: int, *,
-            window: int = 0, ffn=_mlp):
+            window: int = 0, ffn=_mlp, embeds=None):
     """Run the prompt, return (last-token logits (B, V), filled cache).
 
     The cache is ``{"k": (L, B, slots, Hkv, hd), "v": ..., "pos": S}`` with
     ``slots = min(cache_len, window)`` for a sliding window (only the last
     ``window`` positions are kept, rolled into ring order) and
-    ``cache_len`` otherwise (zero-padded past the prompt).  ``ffn`` as in
-    ``_run_prompt``.
+    ``cache_len`` otherwise (zero-padded past the prompt).  ``S`` counts
+    the prompt's positions: ``P + S_tokens`` with ``embeds (B, P, D)``.
+    ``ffn`` as in ``_run_prompt``.
     """
     slots = min(cache_len, window) if window else cache_len
     ks, vs = [], []
@@ -145,10 +152,10 @@ def prefill(params: dict, cfg, tokens: torch.Tensor, cache_len: int, *,
         ks.append(cm.pack_cache(k, slots, window))
         vs.append(cm.pack_cache(v, slots, window))
 
-    logits = _run_prompt(params, cfg, tokens, window, keep_kv, ffn)
+    logits = _run_prompt(params, cfg, tokens, window, keep_kv, ffn, embeds)
+    S = tokens.shape[1] + (0 if embeds is None else embeds.shape[1])
     cache = {"k": torch.stack(ks), "v": torch.stack(vs),
-             "pos": torch.tensor(tokens.shape[1], dtype=torch.int32,
-                                 device=logits.device)}
+             "pos": torch.tensor(S, dtype=torch.int32, device=logits.device)}
     return logits, cache
 
 

@@ -250,8 +250,7 @@ def forward(params: dict, cfg, tokens: torch.Tensor, *, window: int = 0,
 
     ``remat``: each layer under ``torch.utils.checkpoint`` (the reference
     scans its layers under ``jax.remat``)."""
-    x = cm.embed_tokens(params["embed"], tokens, cm.cdtype(cfg))
-    pos = dense._positions(tokens)
+    x, pos = dense._prompt_rows(params, cfg, tokens)
     mk = "window" if window else "causal"
     aux = torch.zeros((), dtype=_F32, device=x.device)
     for lp in cm.layer_list(params, "layers/", cfg.n_layers):

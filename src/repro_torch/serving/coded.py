@@ -54,6 +54,7 @@ from .._device import resolve_device
 from ..comm import Comm, make_local_comm
 from ..core import GradCode
 from ..models import api as model_api
+from ..models import common as cm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,10 +212,14 @@ def _out_shape(cfg) -> tuple[int, ...]:
 
 def _subset_batch_shapes(cfg, b: int, seq: int) -> dict:
     """One subset's batch, ``{name: (shape, dtype)}`` (the forward's
-    per-slot operands)."""
+    per-slot operands); ``seq`` counts tokens, after a VLM's patches."""
     if cfg.family == "linear":
         return {"x": ((b, cfg.d_model), torch.float32)}
-    return {"tokens": ((b, seq), torch.int32)}
+    shapes = {"tokens": ((b, seq), torch.int32)}
+    if cfg.family == "vlm":
+        shapes["embeds"] = ((b, cfg.n_frontend_tokens, cfg.d_model),
+                            cm.cdtype(cfg))
+    return shapes
 
 
 def failed_request_rows(code: GradCode, stragglers, batch_per_subset: int,

@@ -30,6 +30,7 @@ from ..comm import Comm
 from ..core import make_code
 from ..data import CodedBatcher
 from ..models import api as model_api
+from ..models import common as cm
 from ..tune.arrivals import ServingAutotuner
 from ..tune.stragglers import as_straggler_source
 from ..tune.telemetry import record_from_times
@@ -55,10 +56,11 @@ def build_serve_artifacts(cfg, *, batch: int, seq_len: int, window: int = 0,
                           ) -> ServeArtifacts:
     """Prefill and decode for one arch x shape on ``device`` (default: the
     card; raises when there is none).  ``prefill(params, {"tokens": (batch,
-    S)})`` gives the last-token logits and a cache of ``seq_len`` positions
-    (``min(seq_len, window)`` ring slots with a window);
-    ``decode(params, cache, token)`` consumes the cache and returns it
-    advanced.  Both run without autograd."""
+    S)})`` (a VLM's batch also holds ``"embeds": (batch, P, d_model)``,
+    placed before the tokens) gives the last-token logits and a cache of
+    ``seq_len`` positions, patches included (``min(seq_len, window)`` ring
+    slots with a window); ``decode(params, cache, token)`` consumes the
+    cache and returns it advanced.  Both run without autograd."""
     dev = resolve_device(device)
     pre = model_api.make_prefill(cfg, seq_len, window=window)
 
@@ -93,7 +95,9 @@ class BatchedEngine:
                  on_logits: Callable[[int, torch.Tensor], None] | None = None
                  ) -> np.ndarray:
         """prompts: (batch, prompt_len) int32 -> (batch, max_new) int32
-        greedy tokens, on the host.
+        greedy tokens, on the host.  A VLM's prompts follow zero patch
+        embeddings (``n_frontend_tokens`` of them), as the reference's
+        engine does.
 
         Tokens and positions stay on the device until the end (no host
         sync a token).  ``on_logits(t, logits)``, when given, sees the
@@ -106,11 +110,19 @@ class BatchedEngine:
         if B != self.batch:
             raise ValueError(f"{B} prompts for an engine of {self.batch} "
                              f"slots")
-        if not self.window and P + max_new > self.seq_len:
+        batch = {"tokens": prompts}
+        patches = 0
+        if self.cfg.family == "vlm":
+            patches = self.cfg.n_frontend_tokens
+            batch["embeds"] = torch.zeros(
+                (B, patches, self.cfg.d_model),
+                dtype=cm.cdtype(self.cfg), device=self.device)
+        if not self.window and patches + P + max_new > self.seq_len:
             raise ValueError(
-                f"a dense cache of {self.seq_len} positions cannot hold a "
-                f"{P}-token prompt and {max_new} new tokens")
-        logits, cache = self.arts.prefill(self.params, {"tokens": prompts})
+                f"a dense cache of {self.seq_len} positions cannot hold "
+                f"{patches} patches, a {P}-token prompt and {max_new} new "
+                f"tokens")
+        logits, cache = self.arts.prefill(self.params, batch)
         if on_logits is not None:
             on_logits(-1, logits)
         tok = torch.argmax(logits, -1).to(torch.int32)

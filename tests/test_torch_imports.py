@@ -39,7 +39,8 @@ def test_every_module_imports_without_jax_or_the_reference():
             "repro_torch.elastic.trainer", "repro_torch.launch",
             "repro_torch.launch.train", "repro_torch.models.moe",
             "repro_torch.configs.olmoe_1b_7b",
-            "repro_torch.configs.grok_1_314b"} <= set(mods)
+            "repro_torch.configs.grok_1_314b", "repro_torch.models.vlm",
+            "repro_torch.configs.internvl2_26b"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -55,6 +56,26 @@ def test_every_module_imports_without_jax_or_the_reference():
                          env={"PYTHONPATH": str(SRC), "PATH": ""})
     assert res.returncode == 0, res.stderr
     assert f"imported {len(mods)}" in res.stdout
+
+
+def test_vlm_imports_with_jax_absent():
+    """``jax`` made unimportable: the VLM family and its config import,
+    and the config is served by name."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import repro_torch.models.vlm, repro_torch.configs
+        from repro_torch.configs import get_config
+        from repro_torch.models import api
+        cfg = get_config("internvl2-26b")
+        assert api.get_module(cfg) is repro_torch.models.vlm
+        print(cfg.family, cfg.n_frontend_tokens)
+    """)
+    res = subprocess.run([sys.executable, "-c", code], text=True,
+                         capture_output=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": ""})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["vlm", "256"]
 
 
 def test_no_source_line_imports_jax_or_the_reference():
@@ -107,6 +128,8 @@ def _entry_points():
         "models.api.init(dense)": lambda: api.init(lm),
         "models.api.init(moe)":
             lambda: api.init(get_config("olmoe-1b-7b").reduced()),
+        "models.api.init(vlm)":
+            lambda: api.init(get_config("internvl2-26b").reduced()),
         "CodedServer": lambda: CodedServer(lm, code, {}),
         "make_coded_forward": lambda: make_coded_forward(lm, code),
         "BatchedEngine": lambda: BatchedEngine(lm, {}, batch=2, seq_len=8),
@@ -127,7 +150,8 @@ def _entry_points():
                                   "make_codec", "SchemeSpec.make_codec",
                                   "make_local_comm", "models.api.init",
                                   "models.api.init(dense)",
-                                  "models.api.init(moe)", "CodedServer",
+                                  "models.api.init(moe)",
+                                  "models.api.init(vlm)", "CodedServer",
                                   "make_coded_forward", "BatchedEngine",
                                   "build_serve_artifacts",
                                   "models.api.init_cache",

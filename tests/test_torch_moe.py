@@ -98,7 +98,7 @@ def test_full_configs_and_their_capacities():
     assert math.prod(shapes["layers/moe/w_gate"].shape) == 2 ** 31
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec", "vlm"])
+@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec"])
 def test_families_not_ported_are_refused(family):
     cfg = dataclasses.replace(tget_config("qwen3-1.7b").reduced(),
                               family=family)
