@@ -195,6 +195,37 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            rows of the odd vocabulary 92553 are cut by their grouping dim,
            and the 2-layer norms) take the scalar path, exactly as many as
            those shapes imply; every other coding launch the vector path
+  serve_ssm
+           the serve phase on ``xlstm-350m`` (the SSM family: 12 (mLSTM,
+           sLSTM) pairs, d_model 1024, inner width 2048, 4 heads of 512,
+           vocab 50304; random f32 weights from a seed, 2.53 GB) at full
+           width and full depth, code (4, 3, 1, 2), one prompt of
+           SSM_SERVE_SEQ tokens a subset, 1 batch: 12 encodes, 1 decode
+           and no flash launch a batch, all on the vector path; each
+           subset against its own prompt's uncoded forward; the device's
+           idle share over a traced forward of a prompt's first 64 tokens
+           (the sLSTM steps one token at a time, host-paced)
+  generate_ssm
+           ``BatchedEngine`` on serve_ssm's weights: 4 prompts of
+           SSM_SERVE_SEQ tokens, 16 greedy tokens from the recurrent state
+           (no KV cache, no flash launch); the prefill's state at ``pos =
+           SSM_SERVE_SEQ``; outside the window decode steps 0, 1 and 15
+           against the chunked forward over the prompt and the tokens so
+           far, within 5e-2 of the largest logit at 24 layers and 1e-3
+           over the first 8 layers of the same weights (the model's f32
+           rounding grows with depth: the same forward at half the chunk
+           is printed beside); a decode step's
+           median ms against its byte bound (the weights but the embedding,
+           the state read and written) and its idle share
+  train_ssm
+           the synchronous ``Trainer`` of train_lm on ``xlstm-350m`` at
+           full width and full depth, one sequence of SSM_TRAIN_SEQ tokens
+           a subset, NAG, 2 steps counted from 0: per step 12 2D encodes
+           (``ln_f``), 288 3D encodes (the 24 stacked leaves) and 1
+           decode, all on the vector path; step 0's decoded gradient
+           (straggler 0) against the uncoded one taken before the window,
+           and one subset's gradient twice, bitwise.  The three SSM
+           phases' wall is printed as ``ssm_phases``
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
@@ -344,6 +375,31 @@ VLM_SERVE_BATCHES = 2          # batches the serve_vlm phase steps
 VLM_GEN_NEW = 16               # greedy tokens a prompt in generate_vlm
 # positions of a VLM prompt: its patch embeddings, then SERVE_SEQ tokens
 VLM_SEQ = get_config(VLM_ARCH).n_frontend_tokens + SERVE_SEQ
+SSM_ARCH = "xlstm-350m"        # the SSM phases' model, full width and depth
+# the sLSTM runs one cell step a token, eagerly: a 4096-token forward takes
+# 7.8-9.6 s on the card, the device idle 80-83 % of it (tools/ssm_probe.py),
+# so the SSM phases run shorter sequences, the longest multiples of 256 that
+# keep the three phases within 150 s
+SSM_SERVE_SEQ = 512            # prompt tokens of serve_ssm and generate_ssm
+SSM_TRAIN_SEQ = 512            # tokens a sequence of train_ssm
+SSM_SERVE_BATCHES = 1          # batches the serve_ssm phase steps
+SSM_TRACE_SEQ = 64             # tokens of serve_ssm's traced forward
+SSM_GEN_NEW = 16               # greedy tokens a prompt in generate_ssm
+SSM_GEN_CHECKED = (0, 1, SSM_GEN_NEW - 1)
+SSM_TRAIN_STEPS = 2            # steps of train_ssm
+# decode steps (the recurrent form) against the chunked forward over the
+# prompt and the tokens so far, relative to the largest logit.  The f32
+# rounding of this random-weight model grows with depth whatever the form
+# (tools/ssm_probe.py, decode_gap on the card at 512 tokens: 3e-6 at 2
+# layers, 5e-5 to 1.2e-4 at 8, 3.8e-3 to 1.1e-2 at 24, where the same
+# chunked forward with half the chunk is 2.4e-3 to 3.8e-3 from itself; this
+# phase's prompts reached 2.5e-2 at 24), so the decode is held to 1e-3 over
+# the first SSM_GEN_CHECK_LAYERS layers of the same weights, and to
+# SSM_GEN_REL_TOL_FULL at full depth, where a state read or written at the
+# wrong layer or position moves the logits by their own size
+SSM_GEN_REL_TOL = 1e-3
+SSM_GEN_CHECK_LAYERS = 8
+SSM_GEN_REL_TOL_FULL = 5e-2
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 HOST_CALLS = 200               # calls of one host-cost measurement
 
@@ -405,6 +461,9 @@ ENC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (8, 1024, 8), (31, 96, 3),
          (2, 1001, 7), (1, 171737, 2), SERVE_ENC, MOE_ENC, VLM_ENC]
 ENC3D = [(3, 16, 2, 128), (4, 256, 2, 64), (2, 40, 5, 96), (2, 7, 3, 33),
          (1, 3072, 2, 2048)]
+# train_ssm's largest 3D encodes, f32: the 2048 x 2048 stacks (12, 2048,
+# 2048), pairs/slstm/r (12, 4, 4, 512, 512), embed and unembed
+SSM_ENC3D = [(1, 1024, 2, 24576), (1, 256, 2, 98304), (1, 25152, 2, 1024)]
 DEC2D = [(4, 64, 2), (16, 512, 3), (32, 96, 8), (10, 1280, 1), (12, 1001, 19),
          (64, 77, 32), (8, 171776, 2), SERVE_DEC, MOE_DEC, VLM_DEC]
 DEC3D = [(4, 32, 2, 128), (16, 128, 4, 64), (5, 9, 11, 17), (8, 3072, 2048)]
@@ -518,6 +577,22 @@ def check_kernels():
                          f"differs from the {decode_path(Fm, got)} path bitwise")
                 errs[name]["paths_bitwise_cases"] = \
                     errs[name].get("paths_bitwise_cases", 0) + 1
+    # train_ssm's largest 3D encodes, in the path's type (f32): against
+    # the plain version and torch.einsum, on the vector path, and the
+    # scalar path's bits against it
+    for shape in SSM_ENC3D:
+        G = _randn(gen, shape, F32)
+        C = _randn(gen, (shape[0], shape[2]), F32)
+        note("coded_encode_3d", F32, _compare(coded_encode, coded_encode_plain,
+                                              G, C, None, F32))
+        got = coded_encode(G, C)
+        G1 = _offset_copy(G)
+        if encode_path(G, got) != "vector" or encode_path(G1, got) != "scalar" \
+                or not torch.equal(coded_encode(G1, C), got):
+            fail(f"coded_encode{shape}: not the vector path, or the scalar "
+                 f"path differs from it bitwise")
+        errs["coded_encode_3d"]["paths_bitwise_cases"] += 1
+        del G, G1, got
     # what the wrappers must refuse on the card
     G = _randn(gen, (2, 64, 2), F32)
     for bad in (lambda: coded_encode(G.transpose(1, 2).contiguous().transpose(1, 2),
@@ -1777,10 +1852,10 @@ def run_checkpoint_resume(args):
     return counts
 
 
-def _requests(rng, cfg, rows):
-    """``rows`` requests of SERVE_SEQ tokens from ``rng``, and for a VLM
+def _requests(rng, cfg, rows, seq=SERVE_SEQ):
+    """``rows`` requests of ``seq`` tokens from ``rng``, and for a VLM
     each one's patch embeddings (n_frontend_tokens, d_model) in f32."""
-    req = {"tokens": rng.integers(0, cfg.vocab, (rows, SERVE_SEQ),
+    req = {"tokens": rng.integers(0, cfg.vocab, (rows, seq),
                                   dtype=np.int32)}
     if cfg.family == "vlm":
         req["embeds"] = rng.standard_normal(
@@ -1789,9 +1864,10 @@ def _requests(rng, cfg, rows):
 
 
 def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
-                   phase="serve", n_layers=None, reduced=None):
-    """``CodedServer`` on ``arch`` at full width with 4096-token prompts
-    (after their patch embeddings for a VLM), one prompt a subset;
+                   phase="serve", n_layers=None, reduced=None, seq=SERVE_SEQ,
+                   hedge=True):
+    """``CodedServer`` on ``arch`` at full width with prompts of ``seq``
+    tokens (after their patch embeddings for a VLM), one prompt a subset;
     ``n_layers`` cuts the depth (listed in the phase line's ``reduced``).
 
     Counted window: the launch counts and the plain flash version's call
@@ -1800,8 +1876,11 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     vector path.  Outside it: the uncoded forward of each of the first
     batch's prompts alone, as the coded forward runs each subset (an MoE
     forward depends on its batch: the experts' capacity counts its
-    tokens), the hedge, and the straggler-free serve; for an MoE model also
-    the share of picks each layer drops on the first prompt."""
+    tokens), the hedge, and the straggler-free serve (with ``hedge``:
+    three more coded batches); for an MoE model also the share of picks
+    each layer drops on the first prompt; for an SSM model the device's
+    idle share over a traced forward of a prompt's first SSM_TRACE_SEQ
+    tokens (the forward a served batch runs n * d times, shorter)."""
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -1818,8 +1897,8 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     init_s = time.perf_counter() - t0
     n_params = sum(v.numel() for v in params.values())
     rng = np.random.default_rng(SEED)
-    requests = _requests(rng, cfg, n_batches * k)
-    srv = CodedServer(cfg, code, params, batch_per_subset=1, seq_len=SERVE_SEQ,
+    requests = _requests(rng, cfg, n_batches * k, seq)
+    srv = CodedServer(cfg, code, params, batch_per_subset=1, seq_len=seq,
                       straggler_source=RandomStragglers(seed=2), device=DEV)
     if srv.artifacts.codec.backend.name != "hopper":
         fail(f"serve backend {srv.artifacts.codec.backend.name!r}, not the kernels")
@@ -1849,9 +1928,10 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     peak = torch.cuda.max_memory_allocated()
     if plain_calls:
         fail(f"the serving path called the plain flash version {plain_calls} times")
-    per_prefill = cfg.n_layers
+    per_prefill = 0 if cfg.family == "ssm" else cfg.n_layers
     want_batch = {"flash_attention": code.n * code.d * per_prefill,
                   "coded_encode_2d": code.n * code.d, "coded_decode_2d": 1}
+    want_batch = {kk: v for kk, v in want_batch.items() if v}
     if len(results) != n_batches or any(pb != want_batch for pb in per_batch):
         fail(f"{label}: launches per batch {per_batch}, expected {want_batch} "
              f"in each of {n_batches} batches")
@@ -1886,12 +1966,78 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     if err > SERVE_REL_TOL * max(1.0, scale):
         fail(f"decoded logits differ from the uncoded forward by {err:.3e} "
              f"(max |logit| {scale:.3e}, tolerance {SERVE_REL_TOL} of it)")
-    # the hedge: under the pattern's W the straggler's payload never reaches
-    # the output bits (its prompts replaced by others: the same bits)
+    if cfg.family == "ssm":
+        # the device's idle share over the forward of the first prompt's
+        # first SSM_TRACE_SEQ tokens, traced (a whole prompt's 100 K
+        # launches take the profiler half a minute to read)
+        one = {"tokens": first["tokens"][:1, :SSM_TRACE_SEQ]}
+        with torch.no_grad():
+            forward(params, one)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            forward(params, one)
+            torch.cuda.synchronize()
+            one_ms = (time.perf_counter() - t2) * 1e3
+            busy_s, n_launch = _device_busy_s(lambda: forward(params, one))
+        extra.update(traced_forward_tokens=SSM_TRACE_SEQ,
+                     traced_forward_ms=one_ms,
+                     traced_forward_device_busy_ms=busy_s * 1e3,
+                     traced_forward_launches=n_launch,
+                     device_idle_share_traced_forward=1.0 - busy_s * 1e3
+                     / one_ms)
+    if hedge:
+        extra.update(_serve_hedge(srv, code, params, batch0, first, rng,
+                                  scale))
+    if args.profile:
+        profile_steps(lambda: srv.serve_batch(batch0),
+                      statistics.median(r.wall_s * 1e3 for r in results),
+                      f"{cfg.name} coded serve batch", steps=1)
+    say(phase=phase, model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, params=n_params,
+        param_bytes=sum(v.numel() * v.element_size() for v in params.values()),
+        init_s=init_s, code=list(SERVE_CODE), batch_requests=k,
+        seq_len=seq, positions=first["tokens"].shape[1] + (
+            cfg.n_frontend_tokens if cfg.family == "vlm" else 0),
+        batches=len(results), **({"reduced": reduced} if reduced else {}),
+        stragglers=[list(r.stragglers) for r in results],
+        wall_ms=[r.wall_s * 1e3 for r in results], step_ms=step_ms,
+        launches_per_batch=per_batch, launches=counts,
+        launches_by_kernel_path=serve_paths,
+        plain_flash_calls=plain_calls, peak_memory_bytes=peak,
+        uncoded_forward_ms=direct_ms, max_abs_logit=scale,
+        max_abs_err_vs_uncoded=err, tolerance=SERVE_REL_TOL * max(1.0, scale),
+        memory_at_start_bytes=at_start, **extra,
+        seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
+    return counts, len(results), params
+
+
+def _device_busy_s(fn):
+    """The device's busy time (the union of its kernels' intervals) and
+    its launches over one call of ``fn``, traced with ``torch.profiler``
+    from the device's activity alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and e.time_range.end > e.time_range.start]
+    if not spans:
+        fail("torch.profiler recorded no device time")
+    return _union_us(spans) / 1e6, len(spans)
+
+
+def _serve_hedge(srv, code, params, batch0, first, rng, scale):
+    """The hedge: under the pattern's W the straggler's payload never
+    reaches the output bits (its prompts replaced by others: the same
+    bits); and the straggler-free serve within SERVE_REL_TOL of it."""
+    seq = first["tokens"].shape[1]
     hedged = srv.serve_batch(batch0, stragglers=(1,))
     arts = srv.artifacts
     placed = CodedBatcher(code).place(first)
-    for key, v in _requests(rng, cfg, code.d).items():
+    for key, v in _requests(rng, srv.cfg, code.d, seq).items():
         placed[key][1] = torch.from_numpy(v[:, None]).to(DEV)
     inp = arts.step_inputs((1,))
     with torch.no_grad():
@@ -1903,29 +2049,10 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     diff_full = float(np.abs(full.outputs - hedged.outputs).max())
     if diff_full > SERVE_REL_TOL * max(1.0, scale):
         fail(f"stragglers (1,) and () decode {diff_full:.3e} apart")
-    if args.profile:
-        profile_steps(lambda: srv.serve_batch(batch0),
-                      statistics.median(r.wall_s * 1e3 for r in results),
-                      f"{cfg.name} coded serve batch", steps=1)
-    say(phase=phase, model=cfg.name, n_layers=cfg.n_layers,
-        d_model=cfg.d_model, params=n_params,
-        param_bytes=sum(v.numel() * v.element_size() for v in params.values()),
-        init_s=init_s, code=list(SERVE_CODE), batch_requests=k,
-        seq_len=SERVE_SEQ, positions=first["tokens"].shape[1] + (
-            cfg.n_frontend_tokens if cfg.family == "vlm" else 0),
-        batches=len(results), **({"reduced": reduced} if reduced else {}),
-        stragglers=[list(r.stragglers) for r in results],
-        wall_ms=[r.wall_s * 1e3 for r in results], step_ms=step_ms,
-        launches_per_batch=per_batch, launches=counts,
-        launches_by_kernel_path=serve_paths,
-        plain_flash_calls=plain_calls, peak_memory_bytes=peak,
-        uncoded_forward_ms=direct_ms, max_abs_logit=scale,
-        max_abs_err_vs_uncoded=err, tolerance=SERVE_REL_TOL * max(1.0, scale),
-        hedge_bitwise=True, stragglers_1_vs_none_max_abs_diff=diff_full,
-        hedged_wall_ms=hedged.wall_s * 1e3, unhedged_wall_ms=full.wall_s * 1e3,
-        memory_at_start_bytes=at_start, **extra,
-        seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
-    return counts, len(results), params
+    return {"hedge_bitwise": True,
+            "stragglers_1_vs_none_max_abs_diff": diff_full,
+            "hedged_wall_ms": hedged.wall_s * 1e3,
+            "unhedged_wall_ms": full.wall_s * 1e3}
 
 
 def _moe_dropped_share(run):
@@ -2793,7 +2920,8 @@ def _generate_counted(phase, eng, prompts, new, keep=()):
     """``eng.generate(prompts, new)`` counted from 0: the launch counts and
     the plain flash version's calls are set to 0 just before it and read at
     its prefill's logits and after it.  The prefill must launch the flash
-    forward once a layer, the decode never, and nothing else; the tokens
+    forward once a layer (an SSM model never), the decode never, and
+    nothing else; the tokens
     must lie in the vocabulary and every step's logits be finite.  Returns
     the run's record (the prefill's seconds and each decode step's ms from
     CUDA events, the median of steps 2 on) and the logits of the steps in
@@ -2828,11 +2956,12 @@ def _generate_counted(phase, eng, prompts, new, keep=()):
     plain = flash_attn.PLAIN_CALLS["flash_attention"]
     prefill_flash = flash_at[-1]
     decode_flash = counts["flash_attention"] - prefill_flash
-    if plain or prefill_flash != cfg.n_layers or decode_flash:
+    want_flash = 0 if cfg.family == "ssm" else cfg.n_layers
+    if plain or prefill_flash != want_flash or decode_flash:
         fail(f"{phase}: flash launches {prefill_flash} in the prefill and "
              f"{decode_flash} in the decode, plain calls {plain}; expected "
-             f"{cfg.n_layers}, 0 and 0")
-    want = _expect(flash_attention=cfg.n_layers)
+             f"{want_flash}, 0 and 0")
+    want = _expect(flash_attention=want_flash)
     if counts != want:
         fail(f"{phase}: kernel launches {counts}, expected {want}")
     if tokens.shape != (len(prompts), new) or tokens.dtype != np.int32 or \
@@ -2857,14 +2986,18 @@ def _generate_counted(phase, eng, prompts, new, keep=()):
 
 def _decode_bound(eng, params):
     """A decode step's byte bound: every weight but the input embedding
-    (of which it reads B rows) and the KV cache, read once."""
+    (of which it reads B rows) and the KV cache, read once; an SSM model's
+    recurrent state read once and written once."""
     weight_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
                        if k != "embed")
     cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
                       for shape, dt in eng.arts.cache_shapes.values())
-    return {"decode_bytes_weights": weight_bytes,
-            "decode_bytes_kv_cache": cache_bytes,
-            "decode_step_bound_ms": (weight_bytes + cache_bytes)
+    if eng.cfg.family == "ssm":
+        state = {"decode_bytes_state_read_and_written": 2 * cache_bytes}
+    else:
+        state = {"decode_bytes_kv_cache": cache_bytes}
+    return {"decode_bytes_weights": weight_bytes, **state,
+            "decode_step_bound_ms": (weight_bytes + sum(state.values()))
             / HBM_BYTES_PER_S * 1e3, "decode_step_bound_by": "bytes"}
 
 
@@ -3106,6 +3239,130 @@ def run_generate_vlm(args, params):
     return run["launches"]
 
 
+def _ssm_decode_vs_forward(cfg, params, toks, kept, tol, what):
+    """Decode steps ``SSM_GEN_CHECKED`` (their logits in ``kept``) against
+    the chunked forward over the prompt and the tokens fed so far, each
+    within ``tol`` of the largest logit; at the last step the same forward
+    at half the chunk beside it (the model's own f32 spread).  Returns the
+    gaps."""
+    errs = {}
+    half = dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2)
+    for t in SSM_GEN_CHECKED:
+        seq = {"tokens": toks[:, :SSM_SERVE_SEQ + t + 1]}
+        with torch.no_grad():
+            want_l = model_api.make_forward(cfg)(params, seq)
+        scale = want_l.abs().max().item()
+        err = (kept[t] - want_l).abs().max().item()
+        errs[str(t)] = {"max_abs_err": err, "max_abs_logit": scale,
+                        "rel_err": err / scale}
+        if t == SSM_GEN_CHECKED[-1]:
+            with torch.no_grad():
+                other = model_api.make_forward(half)(params, seq)
+            errs[str(t)]["half_chunk_forward_rel_err"] = \
+                (other - want_l).abs().max().item() / scale
+        if not err <= tol * scale:
+            fail(f"generate_ssm: {what} decode step {t}'s logits differ from "
+                 f"the chunked forward past {tol} of the largest logit: "
+                 f"{errs[str(t)]}")
+    return errs
+
+
+def run_generate_ssm(args, params):
+    """``BatchedEngine.generate`` on xlstm-350m at full width and depth
+    (serve_ssm's seeded weights, f32): 4 prompts of SSM_SERVE_SEQ tokens,
+    16 greedy tokens from the recurrent state, counted as
+    ``_generate_counted`` says (no flash launch anywhere).  The state left
+    by the prefill must have ``pos == SSM_SERVE_SEQ``.  Outside the window:
+    decode steps 0, 1 and 15 (the recurrent form) against the chunked
+    forward over the prompt and the tokens fed so far, within
+    SSM_GEN_REL_TOL_FULL of the largest logit; the same over the first
+    SSM_GEN_CHECK_LAYERS layers of the same weights (a prefill, then the
+    full depth's tokens fed), within SSM_GEN_REL_TOL; a decode step's
+    median ms against its byte bound, and the device's idle share over 3
+    traced decode steps."""
+    cfg = get_config(SSM_ARCH)
+    t_phase = time.perf_counter()
+    prompts = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab, (GEN_BATCH, SSM_SERVE_SEQ), dtype=np.int32)
+    eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=SSM_SERVE_SEQ,
+                        device=DEV)
+    prefill, seen = eng.arts.prefill, []
+
+    def prefill_kept(p, batch):
+        logits, state = prefill(p, batch)
+        seen.append(state["pos"])       # a device tensor: read after the run
+        return logits, state
+
+    eng.arts = dataclasses.replace(eng.arts, prefill=prefill_kept)
+    run, kept = _generate_counted("generate_ssm", eng, prompts, SSM_GEN_NEW,
+                                  keep=SSM_GEN_CHECKED)
+    tokens = run.pop("tokens")
+    if [int(p) for p in seen] != [SSM_SERVE_SEQ]:
+        fail(f"generate_ssm: the prefill's state has pos "
+             f"{[int(p) for p in seen]}, not {SSM_SERVE_SEQ}")
+
+    # ---- outside the window: decode logits against the chunked forward
+    t1 = time.perf_counter()
+    toks = torch.from_numpy(np.concatenate([prompts, tokens], axis=1)).to(DEV)
+    for t in SSM_GEN_CHECKED:
+        if t + 1 < SSM_GEN_NEW and not torch.equal(
+                kept[t].argmax(-1).cpu(),
+                torch.from_numpy(tokens[:, t + 1]).long()):
+            fail(f"generate_ssm: token {t + 1} is not step {t}'s argmax")
+    errs = {str(cfg.n_layers): _ssm_decode_vs_forward(
+        cfg, eng.params, toks, kept, SSM_GEN_REL_TOL_FULL,
+        f"{cfg.n_layers}-layer")}
+    del kept
+    L = SSM_GEN_CHECK_LAYERS
+    short = dataclasses.replace(cfg, n_layers=L)
+    p_short = {k: (v[:L // 2] if k.startswith("pairs/") else v)
+               for k, v in eng.params.items()}
+    with torch.no_grad():
+        _, state = model_api.make_prefill(short, 0)(
+            p_short, {"tokens": toks[:, :SSM_SERVE_SEQ]})
+        kept = {}
+        for t in range(SSM_GEN_NEW):
+            kept[t], state = model_api.make_decode(short)(
+                p_short, state, toks[:, SSM_SERVE_SEQ + t])
+    errs[str(L)] = _ssm_decode_vs_forward(short, p_short, toks, kept,
+                                          SSM_GEN_REL_TOL, f"{L}-layer")
+    del kept, state
+    check_s = time.perf_counter() - t1
+    bound = _decode_bound(eng, params)
+    median_ms = run.pop("median_ms")
+    with torch.no_grad():
+        _, state = eng.arts.prefill(eng.params,
+                                    {"tokens": toks[:, :SSM_SERVE_SEQ]})
+    tok = toks[:, SSM_SERVE_SEQ].to(torch.int32)
+
+    def one_step():
+        nonlocal state
+        _, state = eng.arts.decode(eng.params, state, tok)
+
+    one_step()                     # warm; 3 traced steps after it
+    busy_s, n_launch = _device_busy_s(lambda: [one_step() for _ in range(3)])
+    del state
+    say(phase="generate_ssm", model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, batch=GEN_BATCH, prompt_len=SSM_SERVE_SEQ,
+        max_new=SSM_GEN_NEW, seq_len=SSM_SERVE_SEQ, dtype="float32",
+        weights="serve_ssm's, random from a seed",
+        reduced={"prompt_len": f"{SSM_SERVE_SEQ} tokens, not 4096 (the "
+                               f"sLSTM is host-paced: a 4096-token forward "
+                               f"takes 7.8-9.6 s on the card)"},
+        **run, **bound,
+        decode_step_over_bound=median_ms / bound["decode_step_bound_ms"],
+        decode_device_busy_ms=busy_s * 1e3 / 3,
+        decode_launches=n_launch / 3,
+        decode_device_idle_share=1.0 - busy_s * 1e3 / 3 / median_ms,
+        state_pos_after_prefill=SSM_SERVE_SEQ,
+        logits_vs_chunked_forward_by_depth=errs,
+        rel_tolerance_by_depth={str(cfg.n_layers): SSM_GEN_REL_TOL_FULL,
+                                str(L): SSM_GEN_REL_TOL},
+        check_s=check_s, tokens_first_row=tokens[0].tolist(),
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return run["launches"]
+
+
 # ----------------------------------------------------- LM training path
 def _digest(tensors):
     """Exact fingerprint of f32 tensors' bits: per tensor, the sum of its
@@ -3132,12 +3389,13 @@ def _lm_expected(tr, steps, pipelined):
     retired update."""
     cfg, code = tr.cfg, tr.code
     subsets = code.n * code.d
+    layers = 0 if cfg.family == "ssm" else cfg.n_layers   # attention layers
     coded = [k for k, pl in tr.arts.plans.items() if pl.coded]
     one_d = sum(1 for k in coded if tr.params[k].ndim == 1)
     buckets = len(tr.arts.pack_plan.buckets)
     enc = "coded_encode_acc" if pipelined else "coded_encode"
-    want = {"flash_attention": 2 * cfg.n_layers * subsets * steps,
-            "flash_attention_bwd": cfg.n_layers * subsets * steps,
+    want = {"flash_attention": 2 * layers * subsets * steps,
+            "flash_attention_bwd": layers * subsets * steps,
             f"{enc}_2d": one_d * subsets * steps,
             f"{enc}_3d": (len(coded) - one_d) * subsets * steps,
             ("coded_decode_apply" if pipelined else "coded_decode_2d"):
@@ -3159,12 +3417,12 @@ def _lm_scalar_leaves(tr):
     return out
 
 
-def _lm_check_paths(label, tr, paths, pipelined):
+def _lm_check_paths(label, tr, paths, pipelined, steps=LM_STEPS):
     """Every encode and decode of an LM path on the vector path, but the 3D
     encodes of the leaves whose shape leaves it (``_lm_scalar_leaves``),
     which take the scalar path each subset and step."""
     enc = "coded_encode_acc_3d" if pipelined else "coded_encode_3d"
-    n = len(_lm_scalar_leaves(tr)) * tr.code.n * tr.code.d * LM_STEPS
+    n = len(_lm_scalar_leaves(tr)) * tr.code.n * tr.code.d * steps
     want = {enc: n} if n else {}
     scalar = {k: v["scalar"] for k, v in paths.items() if v["scalar"]}
     if scalar != want:
@@ -3172,11 +3430,11 @@ def _lm_check_paths(label, tr, paths, pipelined):
              f"imply {want}")
 
 
-def _lm_batches(cfg, code):
+def _lm_batches(cfg, code, seq=LM_SEQ, steps=LM_STEPS):
     rng = np.random.default_rng(SEED)
     return [{k: torch.from_numpy(v).to(DEV) for k, v in
-             make_synthetic_batch(rng, cfg, code.num_subsets, LM_SEQ).items()}
-            for _ in range(LM_STEPS)]
+             make_synthetic_batch(rng, cfg, code.num_subsets, seq).items()}
+            for _ in range(steps)]
 
 
 def _lm_run(tr, batches, label, drain=False):
@@ -3203,12 +3461,12 @@ def _lm_run(tr, batches, label, drain=False):
     return logs, counts, paths, torch.cuda.max_memory_allocated()
 
 
-def _lm_check_run(label, tr, logs, counts, want):
+def _lm_check_run(label, tr, logs, counts, want, steps=LM_STEPS):
     if tr.arts.codec.backend.name != "hopper":
         fail(f"{label}: backend {tr.arts.codec.backend.name!r}, not the kernels")
     if tr.arts.coded_fraction != 1.0:
         fail(f"{label}: coded fraction {tr.arts.coded_fraction}")
-    for m in logs[-LM_STEPS:]:          # a pipeline's fill retires nothing
+    for m in logs[-steps:]:             # a pipeline's fill retires nothing
         if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
             fail(f"{label}: non-finite metrics {logs}")
     if counts != want:
@@ -3250,6 +3508,59 @@ def _lm_grad_check(tr, batch):
         fail(f"the decoded LM gradient with a straggler is {rel:.3e} from the "
              f"uncoded one (relative norm), past {LM_GRAD_REL_TOL}")
     return rel
+
+
+def _lm_uncoded_grad(tr, batch):
+    """The uncoded gradient of ``batch`` at the trainer's parameters (the
+    mean over its sequences of each one's gradient, one sequence at a
+    time), and whether the first sequence's gradient, computed once more,
+    repeats its bits (compared through exact digests)."""
+    loss_fn = model_api.make_loss(tr.cfg)
+    names = list(tr.params)
+    p = {k: v.detach().requires_grad_(True) for k, v in tr.params.items()}
+    k_sub = tr.code.num_subsets
+    unc, first = None, None
+    for j in (*range(k_sub), 0):
+        sub = {key: v[j:j + 1] for key, v in batch.items()}
+        lval = loss_fn(p, sub)
+        g = torch.autograd.grad(lval, [p[n] for n in names])
+        digest = (_digest([lval.detach().reshape(1)]), _digest(g))
+        if first is None:
+            first = digest
+        elif j == 0:
+            return dict(zip(names, unc)), digest == first
+        if unc is None:
+            unc = [x / k_sub for x in g]
+        else:
+            for u, x in zip(unc, g):
+                u.add_(x / k_sub)
+        del g, lval
+
+
+def _recording(opt):
+    """``opt`` with its first update's gradients kept in the returned list:
+    the decoded gradient the Trainer's first step applies."""
+    seen = []
+
+    def update(grads, state, params):
+        if not seen:
+            seen.append(grads)
+        return opt.update(grads, state, params)
+
+    return dataclasses.replace(opt, update=update), seen
+
+
+def _rel_norm(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every leaf, summed in float64; fails
+    naming the leaves where either side is not finite."""
+    bad = [k for k in want if not (torch.isfinite(got[k]).all()
+                                   and torch.isfinite(want[k]).all())]
+    if bad:
+        fail(f"non-finite gradients at {bad[:6]}")
+    num = sum(float(torch.sum((got[k].double() - want[k].double()) ** 2))
+              for k in want)
+    den = sum(float(torch.sum(want[k].double() ** 2)) for k in want)
+    return math.sqrt(num / den)
 
 
 def _lm_fill_drain_check(tr, batch):
@@ -3395,6 +3706,26 @@ def run_train_vlm(args):
                              f"layers, 79.4 GB at 48)"})}
 
 
+def run_train_ssm(args):
+    """Coded training of xlstm-350m at full width and full depth (24
+    layers) on sequences of SSM_TRAIN_SEQ tokens: ``Trainer`` with NAG,
+    code (4, 3, 1, 2), random stragglers, one sequence a subset, 2 steps
+    counted from 0 (every leaf coded: a 2D encode for ``ln_f``, 3D for the
+    24 others, one decode a step; no flash launch); outside the window the
+    decoded gradient with a straggler against the uncoded one, and one
+    subset's gradient twice, bitwise."""
+    cfg = get_config(SSM_ARCH)
+    code = make_code(*LM_CODE)
+    label = f"{SSM_ARCH} Trainer.step"
+    return {label: _train_lm(
+        args, label, cfg, code, nag(LM_NAG_LR), None,
+        _lm_batches(cfg, code, SSM_TRAIN_SEQ, SSM_TRAIN_STEPS),
+        phase="train_ssm", check_first_step=True,
+        reduced={"seq_len": f"{SSM_TRAIN_SEQ} tokens, not 4096 (the sLSTM "
+                            f"is host-paced: a 4096-token forward takes "
+                            f"7.8-9.6 s on the card)"})}
+
+
 def _subset_grad_repeats(tr, batch):
     """One subset's gradient computed twice gives the same bits (compared
     through exact digests, one gradient on the card at a time)."""
@@ -3413,35 +3744,70 @@ def _subset_grad_repeats(tr, batch):
 
 
 def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
-              checkpoint=False, reduced=None):
+              checkpoint=False, reduced=None, check_first_step=False):
     """One LM training path: build the ``Trainer``, its steps counted from
-    0, the checks outside the window, the phase line; returns the counts."""
+    0, the checks outside the window, the phase line; returns the counts.
+
+    ``check_first_step``: the synchronous path's decoded gradient is the
+    one its first step applies (kept by the optimizer, read after the
+    window; that step's straggler set must not be empty), held against
+    the uncoded gradient of the same batch at the same parameters, taken
+    before the window; a second call of one sequence's gradient reuses
+    that loop.  Otherwise the decoded gradient is an extra coded aggregate
+    with straggler 1 after the steps."""
     pipelined = spec is not None
+    steps, seq = len(batches), batches[0]["tokens"].shape[1]
     gc.collect()           # the last path's trainer, and any cycles
     torch.cuda.empty_cache()
     at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_") \
         if checkpoint else None
+    if check_first_step:
+        opt, first_grads = _recording(opt)
+        first_stragglers = RandomStragglers(seed=3).draw(0, code).stragglers
+        if not first_stragglers:
+            fail(f"{label}: the first step has no straggler to decode past")
     tr = Trainer(cfg, code, opt, spec=spec, seed=SEED, device=DEV,
                  straggler_source=RandomStragglers(seed=3),
                  checkpoint_dir=ckpt_dir)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    if check_first_step:
+        t1 = time.perf_counter()
+        unc, repeats = _lm_uncoded_grad(tr, batches[0])
+        torch.cuda.synchronize()
+        uncoded_s = time.perf_counter() - t1
     logs, counts, paths, peak = _lm_run(tr, batches, label, drain=pipelined)
-    want = _lm_expected(tr, LM_STEPS, pipelined)
-    _lm_check_run(label, tr, logs, counts, want)
-    _lm_check_paths(label, tr, paths, pipelined)
-    steps_ms = [m["wall_ms"] for m in logs[:LM_STEPS]]
+    want = _lm_expected(tr, steps, pipelined)
+    _lm_check_run(label, tr, logs, counts, want, steps)
+    _lm_check_paths(label, tr, paths, pipelined, steps)
+    steps_ms = [m["wall_ms"] for m in logs[:steps]]
     t0 = time.perf_counter()
     if pipelined:
         check = {"fill_drain_equals_sync_bitwise":
                  _lm_fill_drain_check(tr, batches[0])}
+    elif check_first_step:
+        rel = _rel_norm(first_grads[0], unc)
+        del first_grads[:], unc
+        if not repeats:
+            fail(f"{cfg.name}: one subset's gradient differs between two "
+                 f"calls")
+        if not rel <= LM_GRAD_REL_TOL:
+            fail(f"{label}: the decoded gradient of step 0 (stragglers "
+                 f"{list(first_stragglers)}) is {rel:.3e} from the uncoded "
+                 f"one (relative norm), past {LM_GRAD_REL_TOL}")
+        check = {"decoded_vs_uncoded_grad_rel_norm": rel,
+                 "tolerance": LM_GRAD_REL_TOL,
+                 "decoded_gradient": f"step 0's, stragglers "
+                                     f"{list(first_stragglers)}",
+                 "subset_grad_repeats_bits": True,
+                 "uncoded_before_window_s": uncoded_s}
     else:
         check = {"decoded_vs_uncoded_grad_rel_norm":
                  _lm_grad_check(tr, batches[0]),
                  "tolerance": LM_GRAD_REL_TOL}
-    if cfg.family in ("moe", "vlm"):
+    if cfg.family in ("moe", "vlm") and not check_first_step:
         check["subset_grad_repeats_bits"] = _subset_grad_repeats(tr, batches[0])
     torch.cuda.synchronize()
     check["seconds"] = time.perf_counter() - t0
@@ -3452,15 +3818,15 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
     n_params = sum(v.numel() for v in tr.params.values())
     say(phase=phase, path=label, model=cfg.name,
         n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
-        seq_len=LM_SEQ, code=[code.n, code.d, code.s, code.m],
-        global_batch=code.num_subsets, steps=LM_STEPS,
+        seq_len=seq, code=[code.n, code.d, code.s, code.m],
+        global_batch=code.num_subsets, steps=steps,
         optimizer="sgd_momentum" if pipelined else "nag",
         lr=LM_SGD_LR if pipelined else LM_NAG_LR,
         schedule="gather", packed=True, wire="float32",
         pipelined=pipelined, fuse_apply=pipelined,
         reduced={"global_batch": f"{code.num_subsets} sequences, not "
                                  f"train_4k's 256",
-                 "steps": LM_STEPS, "weights": "random, seeded",
+                 "steps": steps, "weights": "random, seeded",
                  **(reduced or {})},
         build_s=build_s,
         losses=[m["loss"] for m in logs],
@@ -3468,7 +3834,7 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
         step_ms=[m["wall_ms"] for m in logs],
         step_ms_median_after_first=statistics.median(steps_ms[1:]),
         launches=counts, launches_expected=want,
-        launches_per_step={k: v / LM_STEPS for k, v in counts.items() if v},
+        launches_per_step={k: v / steps for k, v in counts.items() if v},
         launches_by_kernel_path=paths,
         scalar_path_leaves_by_shape=_lm_scalar_leaves(tr),
         plain_flash_calls=0, memory_at_start_bytes=at_start,
@@ -3544,7 +3910,8 @@ def main():
                                     out_dtype=torch.bfloat16),
                             measure("encode", MOE_ENC), measure("encode", VLM_ENC)],
         "coded_encode_3d": [measure("encode", (4, 3072, 2, 2048)),
-                            measure("encode", VLM_UNEMBED_ENC)],
+                            measure("encode", VLM_UNEMBED_ENC),
+                            measure("encode", SSM_ENC3D[0])],
         "coded_decode_2d": [measure("decode", (8, 4194304), m=2),
                             measure("decode", (8, 4194304), m=2,
                                     dtype=torch.bfloat16),
@@ -3589,6 +3956,21 @@ def main():
     counts[f"{VLM_ARCH} BatchedEngine.generate"] = run_generate_vlm(args, params)
     del params
     counts.update(run_train_vlm(args))
+    # the SSM phases, xlstm-350m at full width and depth
+    t_ssm = time.perf_counter()
+    counts[f"{SSM_ARCH} CodedServer.step"], _, params = run_serve_path(
+        args, SSM_ARCH, SSM_SERVE_BATCHES, phase="serve_ssm",
+        seq=SSM_SERVE_SEQ, hedge=False,
+        reduced={"seq_len": f"{SSM_SERVE_SEQ} tokens, not 4096 (the sLSTM "
+                            f"is host-paced: a 4096-token forward takes "
+                            f"7.8-9.6 s on the card)",
+                 "weights": "random, seeded",
+                 "batches": f"{SSM_SERVE_BATCHES}; the hedge is not re-run "
+                            f"(three more coded batches)"})
+    counts[f"{SSM_ARCH} BatchedEngine.generate"] = run_generate_ssm(args, params)
+    del params
+    counts.update(run_train_ssm(args))
+    say(phase="ssm_phases", seconds=time.perf_counter() - t_ssm)
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined

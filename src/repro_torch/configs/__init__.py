@@ -13,6 +13,7 @@ _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "grok-1-314b": "grok_1_314b",
     "internvl2-26b": "internvl2_26b",
+    "xlstm-350m": "xlstm_350m",
     "logistic-paper": "logistic_paper",
 }
 

@@ -1,5 +1,5 @@
 """Uniform model interface over the families ported so far (``linear``,
-``dense``, ``moe``, ``vlm``); ``ssm``, ``hybrid`` and ``encdec`` are not
+``dense``, ``moe``, ``vlm``, ``ssm``); ``hybrid`` and ``encdec`` are not
 ported yet and raise ``NotImplementedError``.
 
 - ``init(cfg, device, generator)``: the parameter dict on ``device``.
@@ -8,25 +8,29 @@ ported yet and raise ``NotImplementedError``.
   vlm).
 - ``make_prefill(cfg, cache_len, window)``: ``fn(params, batch) ->
   (last-token logits, cache)`` for the LM families (``cache_len`` counts a
-  VLM's patches too).
+  VLM's patches too; an ``ssm`` state has no positions and takes neither
+  ``cache_len`` nor ``window``).
 - ``make_forward(cfg, window)``: ``fn(params, batch) -> per-request output``,
   the unit of work coded serving shards across replicas.
 - ``make_decode(cfg, window)``: ``fn(params, cache, token) -> (logits,
-  cache)``, one KV-cache decode step (the cache is consumed).
+  cache)``, one decode step against a KV cache, or for ``ssm`` the
+  recurrent state (the cache is consumed).
 - ``cache_spec(cfg, B, S, window)`` / ``init_cache``: the decode state's
-  shapes and types, and a zero state.
+  shapes and types, and a zero state (for ``ssm`` the recurrent state of
+  ``xlstm.state_spec``, whatever ``S`` and ``window``).
 """
 from __future__ import annotations
 
 import torch
 
 from .._device import resolve_device
-from . import dense, linear, moe, vlm
+from . import dense, linear, moe, vlm, xlstm
 
 _FAMILY = {
     "dense": dense,
     "moe": moe,
     "vlm": vlm,
+    "ssm": xlstm,
     "linear": linear,
 }
 
@@ -73,6 +77,8 @@ def make_prefill(cfg, cache_len: int, *, window: int = 0):
         if cfg.family == "vlm":
             return mod.prefill(params, cfg, batch["tokens"], cache_len,
                                embeds=batch["embeds"], window=window)
+        if cfg.family == "ssm":
+            return mod.prefill(params, cfg, batch["tokens"])
         return mod.prefill(params, cfg, batch["tokens"], cache_len,
                            window=window)
 
@@ -99,6 +105,10 @@ def make_forward(cfg, *, window: int = 0):
             return mod.last_logits(params, cfg, batch["tokens"],
                                    embeds=batch["embeds"], window=window)
         return fn
+    if cfg.family == "ssm":
+        def fn(params, batch):
+            return mod.last_logits(params, cfg, batch["tokens"])
+        return fn
 
     def fn(params, batch):
         return mod.last_logits(params, cfg, batch["tokens"], window=window)
@@ -116,15 +126,21 @@ def _decoder(cfg):
 
 def cache_spec(cfg, B: int, S: int, *, window: int = 0) -> dict:
     """``{name: (shape, dtype)}`` of the decode state."""
-    return _decoder(cfg).cache_spec(cfg, B, S, window=window)
+    mod = _decoder(cfg)
+    if cfg.family == "ssm":
+        return mod.state_spec(cfg, B)
+    return mod.cache_spec(cfg, B, S, window=window)
 
 
 def init_cache(cfg, B: int, S: int, *, window: int = 0,
                device: str | torch.device = "cuda") -> dict:
     """A zero decode state on ``device`` (default: the card; raises when
     there is none)."""
-    return _decoder(cfg).init_cache(cfg, B, S, window=window,
-                                    device=resolve_device(device))
+    mod = _decoder(cfg)
+    if cfg.family == "ssm":
+        return mod.init_state(cfg, B, device=resolve_device(device))
+    return mod.init_cache(cfg, B, S, window=window,
+                          device=resolve_device(device))
 
 
 def make_decode(cfg, *, window: int = 0):
@@ -133,6 +149,8 @@ def make_decode(cfg, *, window: int = 0):
     mod = _decoder(cfg)
 
     def fn(params, cache, token):
+        if cfg.family == "ssm":
+            return mod.decode_step(params, cfg, cache, token)
         return mod.decode_step(params, cfg, cache, token, window=window)
 
     return fn

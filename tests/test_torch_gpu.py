@@ -862,3 +862,130 @@ def test_moe_scatter_on_the_card_matches_the_cpu_and_repeats_its_bits():
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
     assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+
+
+@pytest.mark.gpu
+def test_reduced_xlstm_prefill_and_decode_on_the_card_match_the_cpu():
+    """Reduced xlstm-350m: a 40-token prefill (the chunked mLSTM, the sLSTM
+    step loop) and 4 decode steps from its recurrent state on the card
+    against the same calls on the CPU: logits and every state leaf at
+    rtol = atol = 1e-4 of their scale; the decode updates the state in
+    place; no flash launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-350m").reduced()
+    params = api.init(cfg, "cpu", torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 44),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    n0 = flash_attn.LAUNCHES["flash_attention"]
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        t = toks.to(dev)
+        with torch.no_grad():
+            lg, state = api.make_prefill(cfg, 0)(p, {"tokens": t[:, :40]})
+        C = state["mlstm/C"]
+        logits = [lg.cpu()]
+        for i in range(40, 44):
+            lg, state = api.make_decode(cfg)(p, state, t[:, i])
+            logits.append(lg.cpu())
+        assert state["mlstm/C"] is C and int(state["pos"]) == 44
+        out[dev] = (logits, {k: v.cpu() for k, v in state.items()})
+    assert flash_attn.LAUNCHES["flash_attention"] == n0
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for k, b in out["cpu"][1].items():
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(out["cuda"][1][k], b, rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+def test_slstm_backward_on_the_card_matches_autograd_and_repeats_its_bits():
+    """The sLSTM's hand-written backward through time on the card against
+    autograd recording the cell's steps as plain operations there, and its
+    bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models import xlstm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(2)
+    H, B, hd, T = 4, 2, 128, 48
+    x4 = torch.randn(T, H, B, 4 * hd, generator=g).cuda()
+    R = (torch.randn(H, hd, 4 * hd, generator=g) / hd ** 0.5).cuda()
+    st = [torch.zeros(H, B, hd, device="cuda") for _ in range(4)]
+    wy = torch.randn(T, H, B, hd, generator=g).cuda()
+    runs = []
+    def plain(x4, R, h, c, n, m):
+        hs = []
+        for x in torch.unbind(x4):
+            pz, pi, pf, po = torch.split(x + torch.bmm(h, R), hd, dim=-1)
+            a = torch.nn.functional.logsigmoid(pf) + m
+            m = torch.maximum(a, pi)
+            c = torch.exp(a - m) * c + torch.exp(pi - m) * torch.tanh(pz)
+            n = torch.exp(a - m) * n + torch.exp(pi - m)
+            h = torch.sigmoid(po) * c / torch.maximum(n, torch.ones_like(n))
+            hs.append(h)
+        return torch.stack(hs), c, n, m
+
+    for fn in (xlstm._SLSTMScan.apply, xlstm._SLSTMScan.apply, plain):
+        leaves = [t.clone().requires_grad_() for t in (x4, R)]
+        hs, *last = fn(*leaves, *st)
+        lval = (hs * wy).sum() + last[0].sum()
+        runs.append((hs.detach(), torch.autograd.grad(lval, leaves)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    for a, b in zip(runs[0][1], runs[2][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.gpu
+def test_reduced_xlstm_coded_step_kernels_match_plain_backend():
+    """Reduced xlstm-350m at S = 64 through one synchronous coded NAG step
+    on the card, code (4, 3, 1, 2) with one straggler: the kernel backend
+    (every leaf encoded, one decode) against the plain backend on the
+    card, params at rtol 1e-4 / atol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from repro_torch.coding import SchemeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_code
+    from repro_torch.data import CodedBatcher, make_synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.optim import nag
+    from repro_torch.train import make_coded_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("xlstm-350m").reduced()
+    code = make_code(4, 3, 1, 2)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in make_synthetic_batch(
+        np.random.default_rng(0), cfg, 4, 64).items()}
+    params = api.init(cfg, "cuda", torch.Generator().manual_seed(0))
+    out = {}
+    for backend in ("hopper", "ref"):
+        arts = make_coded_train_step(cfg, code, nag(1e-2), device="cuda",
+                                     spec=SchemeSpec(backend=backend))
+        inp = arts.step_inputs((1,))
+        n0 = dict(ops.launch_counts())
+        newp, _, m = arts.step(params, nag(1e-2).init(params),
+                               CodedBatcher(code).place(batch), inp["W"],
+                               inp["mask"], inp["rho"])
+        launched = {k: v - n0[k] for k, v in ops.launch_counts().items()
+                    if v != n0[k]}
+        if backend == "hopper":
+            assert launched == {"coded_encode_2d": 12,
+                                "coded_encode_3d": 12 * 24,
+                                "coded_decode_2d": 1}, launched
+        else:
+            assert launched == {}, launched
+        out[backend] = (newp, float(m["loss"]))
+    assert abs(out["hopper"][1] - out["ref"][1]) <= 1e-6 * abs(out["ref"][1])
+    for k, v in out["ref"][0].items():
+        torch.testing.assert_close(out["hopper"][0][k], v, rtol=1e-4,
+                                   atol=1e-5)

@@ -98,7 +98,7 @@ def test_full_configs_and_their_capacities():
     assert math.prod(shapes["layers/moe/w_gate"].shape) == 2 ** 31
 
 
-@pytest.mark.parametrize("family", ["ssm", "hybrid", "encdec"])
+@pytest.mark.parametrize("family", ["hybrid", "encdec"])
 def test_families_not_ported_are_refused(family):
     cfg = dataclasses.replace(tget_config("qwen3-1.7b").reduced(),
                               family=family)
@@ -106,6 +106,15 @@ def test_families_not_ported_are_refused(family):
         tapi.get_module(cfg)
     with pytest.raises(NotImplementedError, match="'moe'"):
         tapi.make_loss(cfg)
+
+
+def test_ssm_family_is_the_ports_xlstm():
+    from repro_torch.models import xlstm as txlstm
+    cfg = tget_config("xlstm-350m")
+    assert cfg.family == "ssm"
+    assert tapi.get_module(cfg) is txlstm
+    assert tapi.get_module(dataclasses.replace(
+        tget_config("qwen3-1.7b").reduced(), family="ssm")) is txlstm
 
 
 def test_init_has_the_reference_tree(model):
