@@ -144,7 +144,8 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            encodes and 1 decode a batch.  An MoE forward depends on its
            batch (an expert's capacity counts the forward's tokens), so the
            decoded logits of each subset are held against the uncoded
-           forward of that subset's prompt alone; the hedge bitwise; the
+           forward of that subset's prompt alone (no hedge re-run: qwen3's
+           serve phase holds it); the
            share of picks each layer drops on one prompt
   generate_moe
            ``BatchedEngine`` on serve_moe's weights: 4 prompts of 4096
@@ -173,7 +174,7 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            256 seeded f32 patch embeddings and 4096 tokens (4352
            positions), 2 batches: 144 flash launches, 12 encodes and 1
            decode a batch, all on the vector path; each subset against its
-           own prompt's uncoded forward; the hedge bitwise
+           own prompt's uncoded forward (no hedge re-run)
   generate_vlm
            ``BatchedEngine`` on serve_vlm's weights: 4 prompts of 4096
            tokens after 256 zero patches (the reference engine's), 16
@@ -219,21 +220,60 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the state read and written) and its idle share
   train_ssm
            the synchronous ``Trainer`` of train_lm on ``xlstm-350m`` at
-           full width and full depth, one sequence of SSM_TRAIN_SEQ tokens
-           a subset, NAG, 2 steps counted from 0: per step 12 2D encodes
-           (``ln_f``), 288 3D encodes (the 24 stacked leaves) and 1
-           decode, all on the vector path; step 0's decoded gradient
+           full width and 12 of its 24 layers (cut: the script's 900 s),
+           one sequence of SSM_TRAIN_SEQ tokens a subset, NAG, 2 steps
+           counted from 0: per step 12 2D encodes (``ln_f``), 288 3D
+           encodes (the 24 stacked leaves) and 1 decode; the six stacked
+           vectors of 6 pairs (R = 6, no whole number of 16-byte vectors)
+           on the scalar path, every other launch on the vector path;
+           step 0's decoded gradient
            (straggler 0) against the uncoded one taken before the window,
            and one subset's gradient twice, bitwise.  The three SSM
            phases' wall is printed as ``ssm_phases``
+  serve_hybrid
+           the serve phase on ``zamba2-1.2b`` (the hybrid family: 38
+           Mamba2 layers, d_model 2048, 64 SSM heads of 64, state 64, and
+           one shared attention block of 32 / 32 heads of 64 and d_ff 8192
+           applied after every 6 layers, 7 times; vocab 32000; random f32
+           weights from a seed, 4.68 GB) at full width and full depth, code
+           (4, 3, 1, 2), one 4096-token prompt a subset, 1 batch: 84 flash
+           launches (at head dim 64), 12 encodes and 1 decode a batch, all
+           on the vector path; each subset against its own prompt's
+           uncoded forward; the device's idle share over a traced forward
+           of one prompt
+  generate_hybrid
+           ``BatchedEngine`` on serve_hybrid's weights: 4 prompts of 4096
+           tokens, 16 greedy tokens from the SSM states, conv rings and the
+           shared block's 7 KV caches (4112 positions); 7 flash launches in
+           the prefill and 0 in the decode; the prefill's state at ``pos =
+           4096``; outside the window decode steps 0, 3 and 7 (forward
+           lengths 4097, 4100 and 4104: chunks of 241, 205 and 228) against
+           the chunked forward over the prompt and the tokens so far,
+           within 1e-3 of the largest logit (the forward at half the chunk
+           printed beside the last); a
+           decode step's median ms against its byte bound and its idle
+           share
+  train_hybrid
+           the synchronous ``Trainer`` of train_lm on ``zamba2-1.2b`` at
+           full width and full depth, one sequence of HYBRID_TRAIN_SEQ =
+           2304 tokens a subset (4096 took 131.9 s for the three phases),
+           NAG, 2 steps counted from 0: per step 36 2D encodes
+           (``ln_f``, the shared block's norms), 216 3D (72 on the scalar
+           path: the six stacked vectors, R = 38), 1 decode, 168 flash
+           forwards and 84 backwards; step 0's decoded gradient
+           (a straggler) against the uncoded one taken before the window,
+           the shared block's leaves named, and one subset's gradient
+           twice, bitwise.  The three hybrid phases' wall is printed as
+           ``hybrid_phases``
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
 online-softmax loop) at the sweep of tests/test_kernels.py, at the serving
 shapes (qwen3-1.7b's and olmoe-1b-7b's at 4096 tokens, internvl2-26b's
-q_per_kv = 6 at 4352 positions, one prompt and the 4-prompt generate
-prefill), with a window and a query offset, at hd 32 and 64 with a ragged S,
-q_per_kv = 4, B > 1 with a window and an offset, and on views of one fused
+q_per_kv = 6 at 4352 positions, zamba2-1.2b's MHA at head dim 64, one
+prompt and the 4-prompt generate prefill), with a window and a query
+offset, at hd 32 and 64 with a ragged S, q_per_kv = 4, B > 1 with a window
+and an offset, and on views of one fused
 projection; check what it refuses (TMA alignment) and that under grad mode it is
 differentiable; and time it beside ``scaled_dot_product_attention`` in
 the same type, against the tensor-core bounds.  They hold the flash
@@ -387,6 +427,10 @@ SSM_TRACE_SEQ = 64             # tokens of serve_ssm's traced forward
 SSM_GEN_NEW = 16               # greedy tokens a prompt in generate_ssm
 SSM_GEN_CHECKED = (0, 1, SSM_GEN_NEW - 1)
 SSM_TRAIN_STEPS = 2            # steps of train_ssm
+# layers of train_ssm, of 24: with the hybrid phases the script took 928.1
+# and 974.8 s on the card (train_ssm 94-125 s of it, the sLSTM host-paced),
+# past its 900 s; serving and generation keep the full depth
+SSM_TRAIN_LAYERS = 12
 # decode steps (the recurrent form) against the chunked forward over the
 # prompt and the tokens so far, relative to the largest logit.  The f32
 # rounding of this random-weight model grows with depth whatever the form
@@ -400,6 +444,32 @@ SSM_TRAIN_STEPS = 2            # steps of train_ssm
 SSM_GEN_REL_TOL = 1e-3
 SSM_GEN_CHECK_LAYERS = 8
 SSM_GEN_REL_TOL_FULL = 5e-2
+HYBRID_ARCH = "zamba2-1.2b"    # the hybrid phases' model, full width and depth
+HYBRID_SERVE_BATCHES = 1       # batches serve_hybrid steps (no hedge re-run:
+                               # qwen3's serve phase holds the hedge)
+HYBRID_GEN_NEW = 16            # greedy tokens a prompt in generate_hybrid
+# decode steps held against the chunked forward over the prompt and the
+# tokens fed so far: the forward's chunk is the largest divisor of its
+# length up to ssm_chunk (the reference's search), so the checked lengths
+# are picked for large chunks: step t runs a forward of 4096 + t + 1 tokens,
+# 4097, 4100 and 4104 with chunks of 241, 205 and 228 (4104 at half the
+# chunk: 114), where steps 1, 2 and 15 would run chunks of 6, 1 and 16 (a
+# forward of 4099 tokens is 4099 one-token chunks a layer)
+HYBRID_GEN_CHECKED = (0, 3, 7)
+# tokens a sequence of train_hybrid: at 4096 the three hybrid phases took
+# 131.9 s on the card (a training step 39.5-39.8 s), past their 90 s, and
+# at 2304 the script took 928.1-974.8 s, past its 900 s; 2304 is the
+# shortest multiple of 256 whose attention still runs the flash kernels
+# (above CHUNK_THRESHOLD)
+HYBRID_TRAIN_SEQ = 2304
+HYBRID_TRAIN_STEPS = 2         # steps of train_hybrid
+# decode steps (the one-step recurrence and the attention over the KV
+# cache) against the chunked forward at full depth, relative to the largest
+# logit; the reference holds its chunked form against its recurrence at
+# 5e-4 (tests/test_models_math.py).  On the card the gap is 1.9-2.7e-5 at
+# 38 layers, where the same forward at half the chunk is 2.3-2.7e-5 from
+# itself (tools/ssm_probe.py --arch zamba2-1.2b, decode_gap)
+HYBRID_GEN_REL_TOL = 1e-3
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 HOST_CALLS = 200               # calls of one host-cost measurement
 
@@ -427,7 +497,21 @@ def nvidia_smi_line() -> str:
 
 # ------------------------------------------------------------------ kernels
 def _randn(gen, shape, dtype):
+    """Normal draws on the card from ``gen`` (drawn there when ``gen`` is
+    a CUDA generator, else on the host and copied)."""
+    if gen.device.type == "cuda":
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
     return torch.randn(*shape, generator=gen).to(dtype).to(DEV)
+
+
+def attention_layers(cfg) -> int:
+    """Attention blocks a forward runs: none for an SSM, one a group for a
+    hybrid (one shared block, applied after each group), else a layer's."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return -(-cfg.n_layers // cfg.attn_every)
+    return cfg.n_layers
 
 
 def _offset_copy(x):
@@ -454,18 +538,26 @@ def _serve_codec_shapes(code_nsdm=SERVE_CODE, arch="qwen3-1.7b"):
 SERVE_ENC, SERVE_DEC = _serve_codec_shapes()
 MOE_ENC, MOE_DEC = _serve_codec_shapes(SERVE_CODE, MOE_ARCH)
 VLM_ENC, VLM_DEC = _serve_codec_shapes(SERVE_CODE, VLM_ARCH)
+HYBRID_ENC, HYBRID_DEC = _serve_codec_shapes(SERVE_CODE, HYBRID_ARCH)
 # the 3D encode of the VLM's unembedding gradient (6144, 92553), grouped on
 # its first dim: rows of an odd R, so the scalar path by shape
 VLM_UNEMBED_ENC = (1, 3072, 2, 92553)
 ENC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (8, 1024, 8), (31, 96, 3),
-         (2, 1001, 7), (1, 171737, 2), SERVE_ENC, MOE_ENC, VLM_ENC]
+         (2, 1001, 7), (1, 171737, 2), SERVE_ENC, MOE_ENC, VLM_ENC,
+         HYBRID_ENC]
 ENC3D = [(3, 16, 2, 128), (4, 256, 2, 64), (2, 40, 5, 96), (2, 7, 3, 33),
          (1, 3072, 2, 2048)]
-# train_ssm's largest 3D encodes, f32: the 2048 x 2048 stacks (12, 2048,
-# 2048), pairs/slstm/r (12, 4, 4, 512, 512), embed and unembed
+# xlstm-350m's largest 3D encodes at full depth, f32 (train_ssm runs half
+# the pairs: the stacks' R halved): the 2048 x 2048 stacks (12, 2048, 2048),
+# pairs/slstm/r (12, 4, 4, 512, 512), embed and unembed
 SSM_ENC3D = [(1, 1024, 2, 24576), (1, 256, 2, 98304), (1, 25152, 2, 1024)]
+# train_hybrid's: mamba/in_proj (38, 2048, 8384) grouped on 8384 (2.61 GB
+# a launch), and a stacked vector (38, 4096) whose R = 38 is no whole
+# number of 16-byte vectors (the scalar path by shape)
+HYBRID_ENC3D = [(1, 4192, 2, 77824), (1, 2048, 2, 38)]
 DEC2D = [(4, 64, 2), (16, 512, 3), (32, 96, 8), (10, 1280, 1), (12, 1001, 19),
-         (64, 77, 32), (8, 171776, 2), SERVE_DEC, MOE_DEC, VLM_DEC]
+         (64, 77, 32), (8, 171776, 2), SERVE_DEC, MOE_DEC, VLM_DEC,
+         HYBRID_DEC]
 DEC3D = [(4, 32, 2, 128), (16, 128, 4, 64), (5, 9, 11, 17), (8, 3072, 2048)]
 ACC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (2, 1001, 7), (1, 171737, 2)]
 ACC3D = [(2, 7, 3, 33), (2, 40, 5, 96), (3, 16, 2, 128), (1, 3072, 2, 2048)]
@@ -577,20 +669,25 @@ def check_kernels():
                          f"differs from the {decode_path(Fm, got)} path bitwise")
                 errs[name]["paths_bitwise_cases"] = \
                     errs[name].get("paths_bitwise_cases", 0) + 1
-    # train_ssm's largest 3D encodes, in the path's type (f32): against
-    # the plain version and torch.einsum, on the vector path, and the
-    # scalar path's bits against it
-    for shape in SSM_ENC3D:
-        G = _randn(gen, shape, F32)
-        C = _randn(gen, (shape[0], shape[2]), F32)
+    # train_ssm's and train_hybrid's largest 3D encodes, in the path's type
+    # (f32, drawn on the card): against the plain version and
+    # torch.einsum, on the path their shape gives (vector where R is a
+    # whole number of 16-byte vectors), and the scalar path's bits against
+    # it
+    dev_gen = torch.Generator(device=DEV).manual_seed(3)
+    for shape in SSM_ENC3D + HYBRID_ENC3D:
+        G = _randn(dev_gen, shape, F32)
+        C = _randn(dev_gen, (shape[0], shape[2]), F32)
         note("coded_encode_3d", F32, _compare(coded_encode, coded_encode_plain,
                                               G, C, None, F32))
         got = coded_encode(G, C)
         G1 = _offset_copy(G)
-        if encode_path(G, got) != "vector" or encode_path(G1, got) != "scalar" \
+        by_shape = "vector" if shape[3] % 4 == 0 else "scalar"
+        if encode_path(G, got) != by_shape or \
+                encode_path(G1, got) != "scalar" \
                 or not torch.equal(coded_encode(G1, C), got):
-            fail(f"coded_encode{shape}: not the vector path, or the scalar "
-                 f"path differs from it bitwise")
+            fail(f"coded_encode{shape}: not the {by_shape} path, or the "
+                 f"scalar path differs from it bitwise")
         errs["coded_encode_3d"]["paths_bitwise_cases"] += 1
         del G, G1, got
     # what the wrappers must refuse on the card
@@ -771,21 +868,25 @@ FLASH = [(2, 256, 4, 2, 64, "causal", 0, 0), (1, 128, 2, 2, 32, "full", 0, 0),
          (2, 200, 8, 2, 128, "causal", 0, 312),
          (1, 200, 4, 2, 32, "causal", 0, 0), (1, 200, 4, 2, 64, "causal", 0, 0),
          (1, 256, 8, 2, 128, "causal", 0, 0),
-         (2, 300, 4, 2, 64, "window", 96, 40)]
+         (2, 300, 4, 2, 64, "window", 96, 40),
+         (1, SERVE_SEQ, 32, 32, 64, "causal", 0, 0)]
 # q, k, v as views of one fused projection (B, S, H + 2 Hkv, hd): strided
 # heads and rows, read in place by TMA
 FLASH_FUSED = (2, 320, 8, 2, 128)
 # the backward's own edges on top of FLASH: an S that is no multiple of its
 # 32- or 64-row tiles at hd 128, q_per_kv = 4 with a window and a query
-# offset, and hd 32 (64-byte rows for bf16) with q_per_kv = 4 and a window
+# offset, hd 32 (64-byte rows for bf16) with q_per_kv = 4 and a window, and
+# train_hybrid's shape (MHA at hd 64)
 FLASH_BWD_EDGES = [(1, 1000, 16, 8, 128, "causal", 0, 0),
                    (2, 97, 8, 2, 64, "window", 33, 5),
-                   (1, 160, 8, 2, 32, "window", 48, 16)]
+                   (1, 160, 8, 2, 32, "window", 48, 16),
+                   (1, HYBRID_TRAIN_SEQ, 32, 32, 64, "causal", 0, 0)]
 # the forward's own shapes on top of FLASH: the generate prefills of
 # olmoe-1b-7b and internvl2-26b, 4 prompts of 4096 tokens (after 256
 # patches for the VLM; the grid's batch axis at its largest)
 FLASH_FWD_EDGES = [(GEN_BATCH, GEN_PROMPT, 16, 16, 128, "causal", 0, 0),
-                   (GEN_BATCH, VLM_SEQ, 48, 8, 128, "causal", 0, 0)]
+                   (GEN_BATCH, VLM_SEQ, 48, 8, 128, "causal", 0, 0),
+                   (GEN_BATCH, GEN_PROMPT, 32, 32, 64, "causal", 0, 0)]
 
 
 FLASH_BF16_REL_NORM = 1e-2
@@ -1186,10 +1287,12 @@ def _paths_since(before, prefix):
             for p in ("vector", "scalar")}
 
 
-def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False):
+def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False,
+            device_draw=False):
     """ms / plain_ms / library_ms / bound_ms of one kernel at one shape
     (``scalar``: every operand one element off an aligned base, the coding
-    kernels' scalar path).
+    kernels' scalar path; ``device_draw``: the operands drawn on the card,
+    for the GB-sized ones).
 
     ``bound_ms`` takes the bytes from device memory, so the three times are
     read on inputs that are not in the L2 cache: each call gets the next of
@@ -1197,7 +1300,7 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False):
     comes round again.  ``ms_l2_warm`` is the kernel on one copy, every
     call, as the train step finds an operand that was written just before.
     The in-place kernels update their copy on every call."""
-    gen = torch.Generator().manual_seed(1)
+    gen = torch.Generator(device=DEV if device_draw else "cpu").manual_seed(1)
     make, kernel, plain, library, nbytes, flops = _operands(
         kind, shape, m, dtype, out_dtype, gen)
     if scalar:
@@ -1880,7 +1983,8 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     three more coded batches); for an MoE model also the share of picks
     each layer drops on the first prompt; for an SSM model the device's
     idle share over a traced forward of a prompt's first SSM_TRACE_SEQ
-    tokens (the forward a served batch runs n * d times, shorter)."""
+    tokens (the forward a served batch runs n * d times, shorter), for a
+    hybrid over a traced forward of a whole prompt."""
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -1928,7 +2032,7 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     peak = torch.cuda.max_memory_allocated()
     if plain_calls:
         fail(f"the serving path called the plain flash version {plain_calls} times")
-    per_prefill = 0 if cfg.family == "ssm" else cfg.n_layers
+    per_prefill = attention_layers(cfg)
     want_batch = {"flash_attention": code.n * code.d * per_prefill,
                   "coded_encode_2d": code.n * code.d, "coded_decode_2d": 1}
     want_batch = {kk: v for kk, v in want_batch.items() if v}
@@ -1966,11 +2070,12 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     if err > SERVE_REL_TOL * max(1.0, scale):
         fail(f"decoded logits differ from the uncoded forward by {err:.3e} "
              f"(max |logit| {scale:.3e}, tolerance {SERVE_REL_TOL} of it)")
-    if cfg.family == "ssm":
-        # the device's idle share over the forward of the first prompt's
-        # first SSM_TRACE_SEQ tokens, traced (a whole prompt's 100 K
-        # launches take the profiler half a minute to read)
-        one = {"tokens": first["tokens"][:1, :SSM_TRACE_SEQ]}
+    if cfg.family in ("ssm", "hybrid"):
+        # the device's idle share over the forward of the first prompt
+        # (an SSM's first SSM_TRACE_SEQ tokens: a whole prompt's 100 K
+        # launches take the profiler half a minute to read), traced
+        trace_seq = SSM_TRACE_SEQ if cfg.family == "ssm" else seq
+        one = {"tokens": first["tokens"][:1, :trace_seq]}
         with torch.no_grad():
             forward(params, one)
             torch.cuda.synchronize()
@@ -1979,7 +2084,7 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
             torch.cuda.synchronize()
             one_ms = (time.perf_counter() - t2) * 1e3
             busy_s, n_launch = _device_busy_s(lambda: forward(params, one))
-        extra.update(traced_forward_tokens=SSM_TRACE_SEQ,
+        extra.update(traced_forward_tokens=trace_seq,
                      traced_forward_ms=one_ms,
                      traced_forward_device_busy_ms=busy_s * 1e3,
                      traced_forward_launches=n_launch,
@@ -2956,7 +3061,7 @@ def _generate_counted(phase, eng, prompts, new, keep=()):
     plain = flash_attn.PLAIN_CALLS["flash_attention"]
     prefill_flash = flash_at[-1]
     decode_flash = counts["flash_attention"] - prefill_flash
-    want_flash = 0 if cfg.family == "ssm" else cfg.n_layers
+    want_flash = attention_layers(cfg)
     if plain or prefill_flash != want_flash or decode_flash:
         fail(f"{phase}: flash launches {prefill_flash} in the prefill and "
              f"{decode_flash} in the decode, plain calls {plain}; expected "
@@ -2987,13 +3092,19 @@ def _generate_counted(phase, eng, prompts, new, keep=()):
 def _decode_bound(eng, params):
     """A decode step's byte bound: every weight but the input embedding
     (of which it reads B rows) and the KV cache, read once; an SSM model's
-    recurrent state read once and written once."""
+    recurrent state read once and written once; a hybrid's KV caches read
+    once, its SSM states and conv rings read once and written once."""
     weight_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
                        if k != "embed")
-    cache_bytes = sum(math.prod(shape) * torch.empty((), dtype=dt).element_size()
-                      for shape, dt in eng.arts.cache_shapes.values())
+    nbytes = {k: math.prod(shape) * torch.empty((), dtype=dt).element_size()
+              for k, (shape, dt) in eng.arts.cache_shapes.items()}
+    cache_bytes = sum(nbytes.values())
     if eng.cfg.family == "ssm":
         state = {"decode_bytes_state_read_and_written": 2 * cache_bytes}
+    elif eng.cfg.family == "hybrid":
+        state = {"decode_bytes_kv_cache": nbytes["k"] + nbytes["v"],
+                 "decode_bytes_state_read_and_written":
+                     2 * (nbytes["ssm"] + nbytes["conv"])}
     else:
         state = {"decode_bytes_kv_cache": cache_bytes}
     return {"decode_bytes_weights": weight_bytes, **state,
@@ -3239,29 +3350,31 @@ def run_generate_vlm(args, params):
     return run["launches"]
 
 
-def _ssm_decode_vs_forward(cfg, params, toks, kept, tol, what):
-    """Decode steps ``SSM_GEN_CHECKED`` (their logits in ``kept``) against
-    the chunked forward over the prompt and the tokens fed so far, each
-    within ``tol`` of the largest logit; at the last step the same forward
-    at half the chunk beside it (the model's own f32 spread).  Returns the
-    gaps."""
+def _decode_vs_forward(cfg, params, toks, kept, tol, what,
+                       phase="generate_ssm", prompt=SSM_SERVE_SEQ,
+                       checked=SSM_GEN_CHECKED):
+    """Decode steps ``checked`` (their logits in ``kept``) against the
+    chunked forward over the ``prompt`` tokens and the tokens fed so far,
+    each within ``tol`` of the largest logit; at the last step the same
+    forward at half the chunk beside it (the model's own f32 spread).
+    Returns the gaps."""
     errs = {}
     half = dataclasses.replace(cfg, ssm_chunk=cfg.ssm_chunk // 2)
-    for t in SSM_GEN_CHECKED:
-        seq = {"tokens": toks[:, :SSM_SERVE_SEQ + t + 1]}
+    for t in checked:
+        seq = {"tokens": toks[:, :prompt + t + 1]}
         with torch.no_grad():
             want_l = model_api.make_forward(cfg)(params, seq)
         scale = want_l.abs().max().item()
         err = (kept[t] - want_l).abs().max().item()
         errs[str(t)] = {"max_abs_err": err, "max_abs_logit": scale,
                         "rel_err": err / scale}
-        if t == SSM_GEN_CHECKED[-1]:
+        if t == checked[-1]:
             with torch.no_grad():
                 other = model_api.make_forward(half)(params, seq)
             errs[str(t)]["half_chunk_forward_rel_err"] = \
                 (other - want_l).abs().max().item() / scale
         if not err <= tol * scale:
-            fail(f"generate_ssm: {what} decode step {t}'s logits differ from "
+            fail(f"{phase}: {what} decode step {t}'s logits differ from "
                  f"the chunked forward past {tol} of the largest logit: "
                  f"{errs[str(t)]}")
     return errs
@@ -3309,7 +3422,7 @@ def run_generate_ssm(args, params):
                 kept[t].argmax(-1).cpu(),
                 torch.from_numpy(tokens[:, t + 1]).long()):
             fail(f"generate_ssm: token {t + 1} is not step {t}'s argmax")
-    errs = {str(cfg.n_layers): _ssm_decode_vs_forward(
+    errs = {str(cfg.n_layers): _decode_vs_forward(
         cfg, eng.params, toks, kept, SSM_GEN_REL_TOL_FULL,
         f"{cfg.n_layers}-layer")}
     del kept
@@ -3324,7 +3437,7 @@ def run_generate_ssm(args, params):
         for t in range(SSM_GEN_NEW):
             kept[t], state = model_api.make_decode(short)(
                 p_short, state, toks[:, SSM_SERVE_SEQ + t])
-    errs[str(L)] = _ssm_decode_vs_forward(short, p_short, toks, kept,
+    errs[str(L)] = _decode_vs_forward(short, p_short, toks, kept,
                                           SSM_GEN_REL_TOL, f"{L}-layer")
     del kept, state
     check_s = time.perf_counter() - t1
@@ -3363,6 +3476,85 @@ def run_generate_ssm(args, params):
     return run["launches"]
 
 
+def run_generate_hybrid(args, params):
+    """``BatchedEngine.generate`` on zamba2-1.2b at full width and depth
+    (serve_hybrid's seeded weights, f32): 4 prompts of 4096 tokens, 16
+    greedy tokens against the SSM states, conv rings and the shared
+    block's 7 dense KV caches of 4112 positions, counted as
+    ``_generate_counted`` says (7 flash launches in the prefill, none in
+    the decode).  The state left by the prefill must have ``pos ==
+    4096``.  Outside the window: decode steps HYBRID_GEN_CHECKED against
+    the chunked forward over the prompt and the tokens fed so far (the
+    forward at half the chunk beside the last), within HYBRID_GEN_REL_TOL
+    of the largest logit; a decode step's median ms against its byte
+    bound, and the device's idle share over 3 traced decode steps."""
+    cfg = get_config(HYBRID_ARCH)
+    t_phase = time.perf_counter()
+    P, new = GEN_PROMPT, HYBRID_GEN_NEW
+    prompts = np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab, (GEN_BATCH, P), dtype=np.int32)
+    eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=P + new,
+                        device=DEV)
+    prefill, seen = eng.arts.prefill, []
+
+    def prefill_kept(p, batch):
+        logits, state = prefill(p, batch)
+        seen.append(state["pos"])       # a device tensor: read after the run
+        return logits, state
+
+    eng.arts = dataclasses.replace(eng.arts, prefill=prefill_kept)
+    run, kept = _generate_counted("generate_hybrid", eng, prompts, new,
+                                  keep=HYBRID_GEN_CHECKED)
+    tokens = run.pop("tokens")
+    if [int(p) for p in seen] != [P]:
+        fail(f"generate_hybrid: the prefill's state has pos "
+             f"{[int(p) for p in seen]}, not {P}")
+
+    # ---- outside the window: decode logits against the chunked forward
+    t1 = time.perf_counter()
+    toks = torch.from_numpy(np.concatenate([prompts, tokens], axis=1)).to(DEV)
+    for t in HYBRID_GEN_CHECKED:
+        if not torch.equal(kept[t].argmax(-1).cpu(),
+                           torch.from_numpy(tokens[:, t + 1]).long()):
+            fail(f"generate_hybrid: token {t + 1} is not step {t}'s argmax")
+    errs = _decode_vs_forward(cfg, eng.params, toks, kept,
+                              HYBRID_GEN_REL_TOL, f"{cfg.n_layers}-layer",
+                              phase="generate_hybrid", prompt=P,
+                              checked=HYBRID_GEN_CHECKED)
+    del kept
+    check_s = time.perf_counter() - t1
+    bound = _decode_bound(eng, params)
+    median_ms = run.pop("median_ms")
+    with torch.no_grad():
+        _, state = eng.arts.prefill(eng.params, {"tokens": toks[:, :P]})
+    tok = toks[:, P].to(torch.int32)
+
+    def one_step():
+        nonlocal state
+        _, state = eng.arts.decode(eng.params, state, tok)
+
+    one_step()                     # warm; 3 traced steps after it
+    busy_s, n_launch = _device_busy_s(lambda: [one_step() for _ in range(3)])
+    del state
+    say(phase="generate_hybrid", model=cfg.name, n_layers=cfg.n_layers,
+        shared_block_applications=attention_layers(cfg),
+        d_model=cfg.d_model, batch=GEN_BATCH, prompt_len=P, max_new=new,
+        seq_len=P + new, window=0, dtype="float32",
+        weights="serve_hybrid's, random from a seed",
+        reduced={"max_new": f"{new} tokens", "weights": "random, seeded"},
+        **run, **bound,
+        decode_step_over_bound=median_ms / bound["decode_step_bound_ms"],
+        decode_device_busy_ms=busy_s * 1e3 / 3,
+        decode_launches=n_launch / 3,
+        decode_device_idle_share=1.0 - busy_s * 1e3 / 3 / median_ms,
+        state_pos_after_prefill=P,
+        checked_forward_lengths=[P + t + 1 for t in HYBRID_GEN_CHECKED],
+        logits_vs_chunked_forward=errs, rel_tolerance=HYBRID_GEN_REL_TOL,
+        check_s=check_s, tokens_first_row=tokens[0].tolist(),
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return run["launches"]
+
+
 # ----------------------------------------------------- LM training path
 def _digest(tensors):
     """Exact fingerprint of f32 tensors' bits: per tensor, the sum of its
@@ -3389,7 +3581,7 @@ def _lm_expected(tr, steps, pipelined):
     retired update."""
     cfg, code = tr.cfg, tr.code
     subsets = code.n * code.d
-    layers = 0 if cfg.family == "ssm" else cfg.n_layers   # attention layers
+    layers = attention_layers(cfg)
     coded = [k for k, pl in tr.arts.plans.items() if pl.coded]
     one_d = sum(1 for k in coded if tr.params[k].ndim == 1)
     buckets = len(tr.arts.pack_plan.buckets)
@@ -3707,14 +3899,15 @@ def run_train_vlm(args):
 
 
 def run_train_ssm(args):
-    """Coded training of xlstm-350m at full width and full depth (24
-    layers) on sequences of SSM_TRAIN_SEQ tokens: ``Trainer`` with NAG,
+    """Coded training of xlstm-350m at full width and SSM_TRAIN_LAYERS of
+    its 24 layers on sequences of SSM_TRAIN_SEQ tokens: ``Trainer`` with NAG,
     code (4, 3, 1, 2), random stragglers, one sequence a subset, 2 steps
     counted from 0 (every leaf coded: a 2D encode for ``ln_f``, 3D for the
-    24 others, one decode a step; no flash launch); outside the window the
+    24 others, those of R = 6 on the scalar path, one decode a step; no
+    flash launch); outside the window the
     decoded gradient with a straggler against the uncoded one, and one
     subset's gradient twice, bitwise."""
-    cfg = get_config(SSM_ARCH)
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_TRAIN_LAYERS)
     code = make_code(*LM_CODE)
     label = f"{SSM_ARCH} Trainer.step"
     return {label: _train_lm(
@@ -3723,7 +3916,35 @@ def run_train_ssm(args):
         phase="train_ssm", check_first_step=True,
         reduced={"seq_len": f"{SSM_TRAIN_SEQ} tokens, not 4096 (the sLSTM "
                             f"is host-paced: a 4096-token forward takes "
-                            f"7.8-9.6 s on the card)"})}
+                            f"7.8-9.6 s on the card)",
+                 "n_layers": f"{SSM_TRAIN_LAYERS} of 24 (with the hybrid "
+                             f"phases the script took 928.1 and 974.8 s on "
+                             f"the card, past its 900 s)"})}
+
+
+def run_train_hybrid(args):
+    """Coded training of zamba2-1.2b at full width and full depth (38
+    Mamba2 layers, 7 applications of the shared block) on sequences of
+    HYBRID_TRAIN_SEQ tokens: ``Trainer`` with NAG, code (4, 3, 1, 2),
+    random stragglers, one sequence a subset, 2 steps counted from 0: per
+    step 36 2D encodes (``ln_f``, ``shared_attn/ln1``, ``ln2``), 216 3D
+    (72 of them on the scalar path: the six stacked vectors, R = 38), 1
+    decode, 168 flash forwards (a checkpointed application runs its
+    forward twice) and 84 backwards; step 0's decoded gradient (a
+    straggler) against the uncoded one taken before the window, the
+    shared block's leaves named, and one subset's gradient twice,
+    bitwise."""
+    cfg = get_config(HYBRID_ARCH)
+    code = make_code(*LM_CODE)
+    label = f"{HYBRID_ARCH} Trainer.step"
+    return {label: _train_lm(
+        args, label, cfg, code, nag(LM_NAG_LR), None,
+        _lm_batches(cfg, code, HYBRID_TRAIN_SEQ, HYBRID_TRAIN_STEPS),
+        phase="train_hybrid", check_first_step=True,
+        reduced={"seq_len": f"{HYBRID_TRAIN_SEQ} tokens, not 4096 (at 4096 "
+                            f"the three hybrid phases took 131.9 s on the "
+                            f"card, past their 90 s; at 2304 the script "
+                            f"took 928.1-974.8 s, past its 900 s)"})}
 
 
 def _subset_grad_repeats(tr, batch):
@@ -3789,7 +4010,15 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
                  _lm_fill_drain_check(tr, batches[0])}
     elif check_first_step:
         rel = _rel_norm(first_grads[0], unc)
+        # the shared block's leaves (a hybrid's) one by one: each sums its
+        # applications' contributions
+        shared = {k: _rel_norm({k: first_grads[0][k]}, {k: unc[k]})
+                  for k in unc if k.startswith("shared_attn/")}
         del first_grads[:], unc
+        bad = {k: v for k, v in shared.items() if not v <= LM_GRAD_REL_TOL}
+        if bad:
+            fail(f"{label}: the shared block's decoded gradient leaves {bad} "
+                 f"are past {LM_GRAD_REL_TOL} of the uncoded ones")
         if not repeats:
             fail(f"{cfg.name}: one subset's gradient differs between two "
                  f"calls")
@@ -3802,7 +4031,9 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
                  "decoded_gradient": f"step 0's, stragglers "
                                      f"{list(first_stragglers)}",
                  "subset_grad_repeats_bits": True,
-                 "uncoded_before_window_s": uncoded_s}
+                 "uncoded_before_window_s": uncoded_s,
+                 **({"shared_attn_rel_norm_by_leaf": shared} if shared
+                    else {})}
     else:
         check = {"decoded_vs_uncoded_grad_rel_norm":
                  _lm_grad_check(tr, batches[0]),
@@ -3900,23 +4131,34 @@ def main():
         "flash_attention": [measure("flash", (1, SERVE_SEQ, 16, 8, 128),
                                     dtype=torch.bfloat16,
                                     out_dtype=torch.bfloat16),
-                            measure("flash", (1, VLM_SEQ, 48, 8, 128))],
+                            measure("flash", (1, VLM_SEQ, 48, 8, 128)),
+                            measure("flash", (1, SERVE_SEQ, 32, 32, 64)),
+                            measure("flash", (GEN_BATCH, GEN_PROMPT, 32, 32,
+                                              64))],
         "flash_attention_bwd": [measure("flash_bwd", (1, LM_SEQ, 16, 8, 128),
                                         dtype=torch.bfloat16,
                                         out_dtype=torch.bfloat16),
-                                measure("flash_bwd", (1, VLM_SEQ, 48, 8, 128))],
+                                measure("flash_bwd", (1, VLM_SEQ, 48, 8, 128)),
+                                measure("flash_bwd", (1, LM_SEQ, 32, 32, 64))],
         "coded_encode_2d": [measure("encode", (4, 4194304, 2)),
                             measure("encode", (1, 171737, 2), dtype=torch.bfloat16,
                                     out_dtype=torch.bfloat16),
-                            measure("encode", MOE_ENC), measure("encode", VLM_ENC)],
+                            measure("encode", MOE_ENC),
+                            measure("encode", VLM_ENC),
+                            measure("encode", HYBRID_ENC)],
         "coded_encode_3d": [measure("encode", (4, 3072, 2, 2048)),
                             measure("encode", VLM_UNEMBED_ENC),
-                            measure("encode", SSM_ENC3D[0])],
+                            measure("encode", SSM_ENC3D[0]),
+                            measure("encode", HYBRID_ENC3D[0],
+                                    device_draw=True),
+                            measure("encode", HYBRID_ENC3D[1])],
         "coded_decode_2d": [measure("decode", (8, 4194304), m=2),
                             measure("decode", (8, 4194304), m=2,
                                     dtype=torch.bfloat16),
                             measure("decode", MOE_DEC[:2], m=MOE_DEC[2]),
-                            measure("decode", VLM_DEC[:2], m=VLM_DEC[2])],
+                            measure("decode", VLM_DEC[:2], m=VLM_DEC[2]),
+                            measure("decode", HYBRID_DEC[:2],
+                                    m=HYBRID_DEC[2])],
         "coded_decode_3d": [measure("decode", (8, 3072, 2048), m=2,
                                     dtype=torch.bfloat16)],
     }
@@ -3941,8 +4183,15 @@ def main():
         run_checkpoint_resume(args)
     counts.update(run_train_lm_path(args))
     # the MoE phases, after train_lm has freed its trainer
+    # serve_moe and serve_vlm re-run no hedge (qwen3's serve phase holds
+    # it): with the hybrid phases the script took 928.1 s on the card, of
+    # which the two phases' hedges (three coded batches each) were about
+    # 10 and 31.5 s
+    no_hedge = ("the hedge is not re-run (three coded batches; qwen3's "
+                "serve phase holds it): with it the script took 928.1 s")
     counts[f"{MOE_ARCH} CodedServer.step"], _, params = run_serve_path(
-        args, MOE_ARCH, MOE_SERVE_BATCHES, phase="serve_moe")
+        args, MOE_ARCH, MOE_SERVE_BATCHES, phase="serve_moe", hedge=False,
+        reduced={"weights": "random, seeded", "hedge": no_hedge})
     counts[f"{MOE_ARCH} BatchedEngine.generate"] = run_generate_moe(args, params)
     del params
     counts.update(run_train_moe(args))
@@ -3952,7 +4201,9 @@ def main():
         n_layers=VLM_SERVE_LAYERS,
         reduced={"n_layers": f"{VLM_SERVE_LAYERS} of 48 (the f32 weights at "
                              f"full depth are 79.4 GB of the card's 85.0)",
-                 "weights": "random, seeded", "patches": "random, seeded"})
+                 "weights": "random, seeded", "patches": "random, seeded",
+                 "hedge": no_hedge},
+        hedge=False)
     counts[f"{VLM_ARCH} BatchedEngine.generate"] = run_generate_vlm(args, params)
     del params
     counts.update(run_train_vlm(args))
@@ -3971,6 +4222,19 @@ def main():
     del params
     counts.update(run_train_ssm(args))
     say(phase="ssm_phases", seconds=time.perf_counter() - t_ssm)
+    # the hybrid phases, zamba2-1.2b at full width and depth
+    t_hybrid = time.perf_counter()
+    counts[f"{HYBRID_ARCH} CodedServer.step"], _, params = run_serve_path(
+        args, HYBRID_ARCH, HYBRID_SERVE_BATCHES, phase="serve_hybrid",
+        hedge=False,
+        reduced={"weights": "random, seeded",
+                 "batches": f"{HYBRID_SERVE_BATCHES}; the hedge is not "
+                            f"re-run (qwen3's serve phase holds it)"})
+    counts[f"{HYBRID_ARCH} BatchedEngine.generate"] = run_generate_hybrid(
+        args, params)
+    del params
+    counts.update(run_train_hybrid(args))
+    say(phase="hybrid_phases", seconds=time.perf_counter() - t_hybrid)
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined

@@ -14,6 +14,7 @@ _MODULES = {
     "grok-1-314b": "grok_1_314b",
     "internvl2-26b": "internvl2_26b",
     "xlstm-350m": "xlstm_350m",
+    "zamba2-1.2b": "zamba2_1p2b",
     "logistic-paper": "logistic_paper",
 }
 

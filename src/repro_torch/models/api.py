@@ -1,6 +1,6 @@
 """Uniform model interface over the families ported so far (``linear``,
-``dense``, ``moe``, ``vlm``, ``ssm``); ``hybrid`` and ``encdec`` are not
-ported yet and raise ``NotImplementedError``.
+``dense``, ``moe``, ``vlm``, ``ssm``, ``hybrid``); ``encdec`` is not ported
+yet and raises ``NotImplementedError``.
 
 - ``init(cfg, device, generator)``: the parameter dict on ``device``.
 - ``make_loss(cfg)``: ``fn(params, batch) -> scalar``; ``batch`` is always a
@@ -13,24 +13,27 @@ ported yet and raise ``NotImplementedError``.
 - ``make_forward(cfg, window)``: ``fn(params, batch) -> per-request output``,
   the unit of work coded serving shards across replicas.
 - ``make_decode(cfg, window)``: ``fn(params, cache, token) -> (logits,
-  cache)``, one decode step against a KV cache, or for ``ssm`` the
-  recurrent state (the cache is consumed).
+  cache)``, one decode step against a KV cache, for ``ssm`` the recurrent
+  state, for ``hybrid`` the SSM states, conv rings and the shared block's
+  KV caches (the cache is consumed).
 - ``cache_spec(cfg, B, S, window)`` / ``init_cache``: the decode state's
   shapes and types, and a zero state (for ``ssm`` the recurrent state of
-  ``xlstm.state_spec``, whatever ``S`` and ``window``).
+  ``xlstm.state_spec``, whatever ``S`` and ``window``; for ``hybrid``
+  ``mamba_hybrid.state_spec``, whose KV caches take ``S`` and ``window``).
 """
 from __future__ import annotations
 
 import torch
 
 from .._device import resolve_device
-from . import dense, linear, moe, vlm, xlstm
+from . import dense, linear, mamba_hybrid, moe, vlm, xlstm
 
 _FAMILY = {
     "dense": dense,
     "moe": moe,
     "vlm": vlm,
     "ssm": xlstm,
+    "hybrid": mamba_hybrid,
     "linear": linear,
 }
 
@@ -129,6 +132,8 @@ def cache_spec(cfg, B: int, S: int, *, window: int = 0) -> dict:
     mod = _decoder(cfg)
     if cfg.family == "ssm":
         return mod.state_spec(cfg, B)
+    if cfg.family == "hybrid":
+        return mod.state_spec(cfg, B, S, window=window)
     return mod.cache_spec(cfg, B, S, window=window)
 
 
@@ -139,6 +144,9 @@ def init_cache(cfg, B: int, S: int, *, window: int = 0,
     mod = _decoder(cfg)
     if cfg.family == "ssm":
         return mod.init_state(cfg, B, device=resolve_device(device))
+    if cfg.family == "hybrid":
+        return mod.init_state(cfg, B, S, window=window,
+                              device=resolve_device(device))
     return mod.init_cache(cfg, B, S, window=window,
                           device=resolve_device(device))
 

@@ -97,9 +97,10 @@ class BatchedEngine:
         """prompts: (batch, prompt_len) int32 -> (batch, max_new) int32
         greedy tokens, on the host.  A VLM's prompts follow zero patch
         embeddings (``n_frontend_tokens`` of them), as the reference's
-        engine does.  A dense cache without a window must hold the
-        patches, the prompt and ``max_new`` tokens; an ``ssm`` model's
-        recurrent state holds any length.
+        engine does.  A dense cache without a window (a ``hybrid``
+        model's shared-block KV caches too) must hold the patches, the
+        prompt and ``max_new`` tokens; an ``ssm`` model's recurrent state
+        holds any length.
 
         Tokens and positions stay on the device until the end (no host
         sync a token).  ``on_logits(t, logits)``, when given, sees the
@@ -119,7 +120,8 @@ class BatchedEngine:
             batch["embeds"] = torch.zeros(
                 (B, patches, self.cfg.d_model),
                 dtype=cm.cdtype(self.cfg), device=self.device)
-        # a recurrent (ssm) state has no positions: any length fits
+        # a recurrent (ssm) state has no positions: any length fits (a
+        # hybrid's KV caches have positions, as a dense cache's)
         if self.cfg.family != "ssm" and not self.window and \
                 patches + P + max_new > self.seq_len:
             raise ValueError(

@@ -989,3 +989,106 @@ def test_reduced_xlstm_coded_step_kernels_match_plain_backend():
     for k, v in out["ref"][0].items():
         torch.testing.assert_close(out["hopper"][0][k], v, rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_reduced_hybrid_prefill_and_decode_on_the_card_match_the_cpu():
+    """Reduced zamba2-1.2b in groups of 2 over 5 layers (3 applications of
+    the shared block, the last group short): a 2112-token prefill, above
+    ``CHUNK_THRESHOLD``, so the shared block's attention runs the flash
+    kernel at head dim 64 on the card (3 launches), and 4 decode steps on
+    the SSM states, conv rings and KV caches, against the same calls on the
+    CPU (the plain flash version): logits and every state leaf at rtol =
+    atol = 1e-4 of their scale; the decode updates the state in place and
+    launches no flash."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("zamba2-1.2b").reduced(),
+                              n_layers=5, attn_every=2)
+    assert cfg.head_dim_ == 64
+    params = api.init(cfg, "cpu", torch.Generator().manual_seed(0))
+    S = 2112
+    toks = torch.randint(0, cfg.vocab, (2, S + 4),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        t = toks.to(dev)
+        n0 = flash_attn.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            lg, state = api.make_prefill(cfg, S + 4)(p, {"tokens": t[:, :S]})
+        if dev == "cuda":
+            assert flash_attn.LAUNCHES["flash_attention"] == n0 + 3
+        held = {k: state[k] for k in ("ssm", "conv", "k", "v")}
+        logits = [lg.cpu()]
+        n1 = flash_attn.LAUNCHES["flash_attention"]
+        for i in range(S, S + 4):
+            lg, state = api.make_decode(cfg)(p, state, t[:, i])
+            logits.append(lg.cpu())
+        assert flash_attn.LAUNCHES["flash_attention"] == n1
+        assert all(state[k] is v for k, v in held.items())
+        assert int(state["pos"]) == S + 4
+        out[dev] = (logits, {k: v.cpu() for k, v in state.items()})
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for k, b in out["cpu"][1].items():
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(out["cuda"][1][k], b, rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+def test_reduced_hybrid_coded_step_kernels_match_plain_backend():
+    """Reduced zamba2-1.2b (2 layers, 2 applications of the shared block)
+    at S = 2304, above ``CHUNK_THRESHOLD``, through one synchronous coded
+    NAG step on the card, code (4, 3, 1, 2) with one straggler: the kernel
+    backend (36 2D encodes for ``ln_f`` and the shared block's norms, 216
+    3D, one decode; flash forward twice and backward once an application
+    and subset, at head dim 64) against the plain coding backend on the
+    card, params at rtol 1e-4 / atol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from repro_torch.coding import SchemeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_code
+    from repro_torch.data import CodedBatcher, make_synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.optim import nag
+    from repro_torch.train import make_coded_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("zamba2-1.2b").reduced()
+    code = make_code(4, 3, 1, 2)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in make_synthetic_batch(
+        np.random.default_rng(0), cfg, 4, 2304).items()}
+    params = api.init(cfg, "cuda", torch.Generator().manual_seed(0))
+    out = {}
+    for backend in ("hopper", "ref"):
+        arts = make_coded_train_step(cfg, code, nag(1e-2), device="cuda",
+                                     spec=SchemeSpec(backend=backend))
+        inp = arts.step_inputs((1,))
+        n0 = dict(ops.launch_counts())
+        newp, _, m = arts.step(params, nag(1e-2).init(params),
+                               CodedBatcher(code).place(batch), inp["W"],
+                               inp["mask"], inp["rho"])
+        launched = {k: v - n0[k] for k, v in ops.launch_counts().items()
+                    if v != n0[k]}
+        flash = {"flash_attention": 2 * 2 * 12, "flash_attention_bwd": 2 * 12}
+        if backend == "hopper":
+            assert launched == {"coded_encode_2d": 3 * 12,
+                                "coded_encode_3d": 18 * 12,
+                                "coded_decode_2d": 1, **flash}, launched
+        else:
+            assert launched == flash, launched
+        out[backend] = (newp, float(m["loss"]))
+    assert abs(out["hopper"][1] - out["ref"][1]) <= 1e-6 * abs(out["ref"][1])
+    for k, v in out["ref"][0].items():
+        torch.testing.assert_close(out["hopper"][0][k], v, rtol=1e-4,
+                                   atol=1e-5)

@@ -41,7 +41,9 @@ def test_every_module_imports_without_jax_or_the_reference():
             "repro_torch.configs.olmoe_1b_7b",
             "repro_torch.configs.grok_1_314b", "repro_torch.models.vlm",
             "repro_torch.configs.internvl2_26b", "repro_torch.models.xlstm",
-            "repro_torch.configs.xlstm_350m"} <= set(mods)
+            "repro_torch.configs.xlstm_350m",
+            "repro_torch.models.mamba_hybrid",
+            "repro_torch.configs.zamba2_1p2b"} <= set(mods)
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -97,6 +99,26 @@ def test_xlstm_imports_with_jax_absent():
                          env={"PYTHONPATH": str(SRC), "PATH": ""})
     assert res.returncode == 0, res.stderr
     assert res.stdout.split() == ["ssm", "24"]
+
+
+def test_hybrid_imports_with_jax_absent():
+    """``jax`` made unimportable: the hybrid family and its config import,
+    and the config is served by name."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import repro_torch.models.mamba_hybrid, repro_torch.configs
+        from repro_torch.configs import get_config
+        from repro_torch.models import api
+        cfg = get_config("zamba2-1.2b")
+        assert api.get_module(cfg) is repro_torch.models.mamba_hybrid
+        print(cfg.family, cfg.n_layers, cfg.attn_every)
+    """)
+    res = subprocess.run([sys.executable, "-c", code], text=True,
+                         capture_output=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": ""})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["hybrid", "38", "6"]
 
 
 def test_no_source_line_imports_jax_or_the_reference():
@@ -155,6 +177,10 @@ def _entry_points():
             lambda: api.init(get_config("xlstm-350m").reduced()),
         "models.api.init_cache(ssm)":
             lambda: api.init_cache(get_config("xlstm-350m").reduced(), 2, 8),
+        "models.api.init(hybrid)":
+            lambda: api.init(get_config("zamba2-1.2b").reduced()),
+        "models.api.init_cache(hybrid)":
+            lambda: api.init_cache(get_config("zamba2-1.2b").reduced(), 2, 8),
         "CodedServer": lambda: CodedServer(lm, code, {}),
         "make_coded_forward": lambda: make_coded_forward(lm, code),
         "BatchedEngine": lambda: BatchedEngine(lm, {}, batch=2, seq_len=8),
@@ -178,7 +204,10 @@ def _entry_points():
                                   "models.api.init(moe)",
                                   "models.api.init(vlm)",
                                   "models.api.init(ssm)",
-                                  "models.api.init_cache(ssm)", "CodedServer",
+                                  "models.api.init_cache(ssm)",
+                                  "models.api.init(hybrid)",
+                                  "models.api.init_cache(hybrid)",
+                                  "CodedServer",
                                   "make_coded_forward", "BatchedEngine",
                                   "build_serve_artifacts",
                                   "models.api.init_cache",

@@ -98,7 +98,7 @@ def test_full_configs_and_their_capacities():
     assert math.prod(shapes["layers/moe/w_gate"].shape) == 2 ** 31
 
 
-@pytest.mark.parametrize("family", ["hybrid", "encdec"])
+@pytest.mark.parametrize("family", ["encdec"])
 def test_families_not_ported_are_refused(family):
     cfg = dataclasses.replace(tget_config("qwen3-1.7b").reduced(),
                               family=family)
@@ -106,6 +106,15 @@ def test_families_not_ported_are_refused(family):
         tapi.get_module(cfg)
     with pytest.raises(NotImplementedError, match="'moe'"):
         tapi.make_loss(cfg)
+
+
+def test_hybrid_family_is_the_ports_mamba_hybrid():
+    from repro_torch.models import mamba_hybrid as tmh
+    cfg = tget_config("zamba2-1.2b")
+    assert cfg.family == "hybrid"
+    assert tapi.get_module(cfg) is tmh
+    assert tapi.get_module(dataclasses.replace(
+        tget_config("qwen3-1.7b").reduced(), family="hybrid")) is tmh
 
 
 def test_ssm_family_is_the_ports_xlstm():
