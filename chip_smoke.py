@@ -220,11 +220,11 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the state read and written) and its idle share
   train_ssm
            the synchronous ``Trainer`` of train_lm on ``xlstm-350m`` at
-           full width and 12 of its 24 layers (cut: the script's 900 s),
+           full width and 6 of its 24 layers (cut: the script's 900 s),
            one sequence of SSM_TRAIN_SEQ tokens a subset, NAG, 2 steps
            counted from 0: per step 12 2D encodes (``ln_f``), 288 3D
            encodes (the 24 stacked leaves) and 1 decode; the six stacked
-           vectors of 6 pairs (R = 6, no whole number of 16-byte vectors)
+           vectors of 3 pairs (R = 3, no whole number of 16-byte vectors)
            on the scalar path, every other launch on the vector path;
            step 0's decoded gradient
            (straggler 0) against the uncoded one taken before the window,
@@ -265,6 +265,48 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the shared block's leaves named, and one subset's gradient
            twice, bitwise.  The three hybrid phases' wall is printed as
            ``hybrid_phases``
+  serve_encdec
+           the serve phase on ``whisper-tiny`` (the encoder-decoder family:
+           4 encoder and 4 decoder layers, d_model 384, 6 heads of 64,
+           d_ff 1536, vocab 51865, ``dec_ctx`` 448; random f32 weights
+           from a seed, 247 MB) at full width and depth, code (4, 3, 1,
+           2), one request of 1500 seeded frame embeddings a subset, 2
+           batches: no flash launch (1500 frames: the materialized
+           softmax), 12 encodes and 1 decode a batch, all on the vector
+           path; each subset against its own request's uncoded forward;
+           the device's idle share over a traced forward of one request
+  generate_encdec
+           ``BatchedEngine`` on serve_encdec's weights: a batch of 4 on
+           1500 zero frames, 64 greedy tokens against the self-KV ring
+           (448 slots) and the cross-KV; no flash launch; the prefill's
+           cache at ``pos = 1``; outside the window decode steps 0, 7 and
+           63 against the unrolled chain of the port's own prefill and
+           decode steps (decode against decode, rtol = atol = 2e-4), and
+           the decode against the teacher-forced ``decode_train`` at
+           positions 0 and 7 printed (ROADMAP C.7: the reference's decode
+           does not rotate q and k); a decode step's median ms against its
+           byte bound (the decoder weights, the unembedding, the self-KV
+           and cross-KV read once) and its idle share
+  train_encdec
+           the synchronous ``Trainer`` of train_lm on ``whisper-tiny`` at
+           full width and depth, one sequence of 1500 frames and 448
+           tokens a subset, NAG, 2 steps counted from 0: per step 24 2D
+           encodes, 324 3D (``embed`` and ``unembed`` on the scalar path,
+           rows of the odd vocabulary 51865), 1 decode, no flash launch;
+           step 0's decoded gradient (a straggler) against the uncoded
+           one taken before the window, and one subset's gradient twice,
+           bitwise
+  long_encdec
+           the same model at 3000 frames (``enc_pos`` tiled twice), above
+           ``CHUNK_THRESHOLD``: the encoder's self-attention and every
+           cross-attention through the flash kernels with the full mask
+           (keys 3000, queries 3000, 448 or 1).  One served batch (96
+           flash launches: 4 encoder and 4 cross a prefill), 4 generated
+           tokens (8 flash launches in the prefill, 4 a decode step), one
+           training step on 448 tokens (192 flash forwards and 96
+           backwards), each counted from 0 and checked as the 1500-frame
+           phases; the plain flash version never runs over the phase.  The
+           four phases' wall is printed as ``encdec_phases``
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
@@ -273,8 +315,10 @@ shapes (qwen3-1.7b's and olmoe-1b-7b's at 4096 tokens, internvl2-26b's
 q_per_kv = 6 at 4352 positions, zamba2-1.2b's MHA at head dim 64, one
 prompt and the 4-prompt generate prefill), with a window and a query
 offset, at hd 32 and 64 with a ragged S, q_per_kv = 4, B > 1 with a window
-and an offset, and on views of one fused
-projection; check what it refuses (TMA alignment) and that under grad mode it is
+and an offset, on views of one fused projection, at whisper-tiny's
+full-mask shapes at 3000 frames (FLASH_CROSS: 3000, 448 and 1 queries
+against 3000 keys, and a ragged GQA case), and on layer slices of a
+stacked cross-KV cache; check what it refuses (TMA alignment) and that under grad mode it is
 differentiable; and time it beside ``scaled_dot_product_attention`` in
 the same type, against the tensor-core bounds.  They hold the flash
 backward (``csrc/flash_attn_bwd.cu``) against the plain version's autograd
@@ -351,7 +395,7 @@ try:
                                                   encode_path)
     from repro_torch.models import api as model_api
     from repro_torch.models import common as model_common
-    from repro_torch.models import moe
+    from repro_torch.models import encdec, moe
     from repro_torch.optim import nag, sgd_momentum
     from repro_torch.serving import BatchedEngine, CodedServer
     from repro_torch.train import (PipelineDriver, Trainer,
@@ -429,8 +473,10 @@ SSM_GEN_CHECKED = (0, 1, SSM_GEN_NEW - 1)
 SSM_TRAIN_STEPS = 2            # steps of train_ssm
 # layers of train_ssm, of 24: with the hybrid phases the script took 928.1
 # and 974.8 s on the card (train_ssm 94-125 s of it, the sLSTM host-paced),
-# past its 900 s; serving and generation keep the full depth
-SSM_TRAIN_LAYERS = 12
+# past its 900 s, so 12 layers; with the encdec phases 938.9 s (train_ssm
+# at 12 layers 67 s of it, on a host that ran the SSM phases 1.8x slower
+# than the run before), so 6; serving and generation keep the full depth
+SSM_TRAIN_LAYERS = 6
 # decode steps (the recurrent form) against the chunked forward over the
 # prompt and the tokens so far, relative to the largest logit.  The f32
 # rounding of this random-weight model grows with depth whatever the form
@@ -470,6 +516,25 @@ HYBRID_TRAIN_STEPS = 2         # steps of train_hybrid
 # 38 layers, where the same forward at half the chunk is 2.3-2.7e-5 from
 # itself (tools/ssm_probe.py --arch zamba2-1.2b, decode_gap)
 HYBRID_GEN_REL_TOL = 1e-3
+ENCDEC_ARCH = "whisper-tiny"   # the encdec phases' model, full width and depth
+ENCDEC_FRAMES = get_config(ENCDEC_ARCH).n_frontend_tokens   # 1500: 30 s
+ENCDEC_SERVE_BATCHES = 2       # batches serve_encdec steps
+ENCDEC_GEN_NEW = 64            # greedy tokens a request in generate_encdec
+# decode steps held against the unrolled chain of the port's own prefill
+# and decode_step (the reference's decode semantics: no RoPE in the
+# decoder's self-attention, ROADMAP C.7); step 6 also gives position 7's
+# logits for the decode-against-decode_train gap
+ENCDEC_GEN_CHECKED = (0, 7, ENCDEC_GEN_NEW - 1)
+ENCDEC_TRAIN_TOKENS = 448      # decoder tokens a sequence: dec_ctx
+ENCDEC_TRAIN_STEPS = 2         # steps of train_encdec
+# long_encdec: 60 s of audio (enc_pos tiled twice), above CHUNK_THRESHOLD,
+# so the encoder's self-attention and every cross-attention run the flash
+# kernels with the full mask
+ENCDEC_LONG_FRAMES = 3000
+# greedy tokens a request in long_encdec: 8 took 0.13 s of the script's
+# 938.9 s; cut first all the same, as the script passed its 900 s
+ENCDEC_LONG_GEN_NEW = 4
+ENCDEC_LONG_GEN_CHECKED = (0, ENCDEC_LONG_GEN_NEW - 1)
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 HOST_CALLS = 200               # calls of one host-cost measurement
 
@@ -506,12 +571,26 @@ def _randn(gen, shape, dtype):
 
 def attention_layers(cfg) -> int:
     """Attention blocks a forward runs: none for an SSM, one a group for a
-    hybrid (one shared block, applied after each group), else a layer's."""
+    hybrid (one shared block, applied after each group), an encoder's
+    self-attention a layer and a decoder's cross-attention a layer for an
+    encoder-decoder, else a layer's."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return -(-cfg.n_layers // cfg.attn_every)
+    if cfg.family == "encdec":
+        return cfg.enc_layers + cfg.n_layers
     return cfg.n_layers
+
+
+def flash_layers(cfg, frames=None) -> int:
+    """Flash launches of one forward: ``attention_layers``, but none for an
+    encoder-decoder on ``CHUNK_THRESHOLD`` frames or fewer, whose
+    attention over the frames is then the materialized softmax (its
+    decoder's self-attention always is)."""
+    if cfg.family == "encdec" and frames <= model_common.CHUNK_THRESHOLD:
+        return 0
+    return attention_layers(cfg)
 
 
 def _offset_copy(x):
@@ -539,14 +618,19 @@ SERVE_ENC, SERVE_DEC = _serve_codec_shapes()
 MOE_ENC, MOE_DEC = _serve_codec_shapes(SERVE_CODE, MOE_ARCH)
 VLM_ENC, VLM_DEC = _serve_codec_shapes(SERVE_CODE, VLM_ARCH)
 HYBRID_ENC, HYBRID_DEC = _serve_codec_shapes(SERVE_CODE, HYBRID_ARCH)
+ENCDEC_ENC, ENCDEC_DEC = _serve_codec_shapes(SERVE_CODE, ENCDEC_ARCH)
 # the 3D encode of the VLM's unembedding gradient (6144, 92553), grouped on
 # its first dim: rows of an odd R, so the scalar path by shape
 VLM_UNEMBED_ENC = (1, 3072, 2, 92553)
+# train_encdec's 3D encodes of whisper-tiny's embed (51865, 384), grouped on
+# its 384, and unembed (384, 51865): one shape, rows of the odd vocabulary
+# 51865, so the scalar path by shape
+ENCDEC_VOCAB_ENC = (1, 192, 2, 51865)
 ENC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (8, 1024, 8), (31, 96, 3),
          (2, 1001, 7), (1, 171737, 2), SERVE_ENC, MOE_ENC, VLM_ENC,
-         HYBRID_ENC]
+         HYBRID_ENC, ENCDEC_ENC]
 ENC3D = [(3, 16, 2, 128), (4, 256, 2, 64), (2, 40, 5, 96), (2, 7, 3, 33),
-         (1, 3072, 2, 2048)]
+         (1, 3072, 2, 2048), ENCDEC_VOCAB_ENC]
 # xlstm-350m's largest 3D encodes at full depth, f32 (train_ssm runs half
 # the pairs: the stacks' R halved): the 2048 x 2048 stacks (12, 2048, 2048),
 # pairs/slstm/r (12, 4, 4, 512, 512), embed and unembed
@@ -557,7 +641,7 @@ SSM_ENC3D = [(1, 1024, 2, 24576), (1, 256, 2, 98304), (1, 25152, 2, 1024)]
 HYBRID_ENC3D = [(1, 4192, 2, 77824), (1, 2048, 2, 38)]
 DEC2D = [(4, 64, 2), (16, 512, 3), (32, 96, 8), (10, 1280, 1), (12, 1001, 19),
          (64, 77, 32), (8, 171776, 2), SERVE_DEC, MOE_DEC, VLM_DEC,
-         HYBRID_DEC]
+         HYBRID_DEC, ENCDEC_DEC]
 DEC3D = [(4, 32, 2, 128), (16, 128, 4, 64), (5, 9, 11, 17), (8, 3072, 2048)]
 ACC2D = [(1, 8, 1), (3, 64, 2), (5, 640, 4), (2, 1001, 7), (1, 171737, 2)]
 ACC3D = [(2, 7, 3, 33), (2, 40, 5, 96), (3, 16, 2, 128), (1, 3072, 2, 2048)]
@@ -889,12 +973,28 @@ FLASH_FWD_EDGES = [(GEN_BATCH, GEN_PROMPT, 16, 16, 128, "causal", 0, 0),
                    (GEN_BATCH, GEN_PROMPT, 32, 32, 64, "causal", 0, 0)]
 
 
+# cross-attention and the encoder's self-attention of an encoder-decoder
+# past CHUNK_THRESHOLD frames, (B, Sq, Sk, H, Hkv, hd, mask_kind): Sk is no
+# Sq + kv_pos0 and every key tile is visited.  whisper-tiny at 3000 frames:
+# its encoder, its training cross-attention (448 queries) and its decode
+# step's (one query, below a query tile, at the generate batch of 4); and a
+# ragged GQA case (97 queries, 1000 keys: no whole tile of either)
+FLASH_CROSS = [(1, ENCDEC_LONG_FRAMES, ENCDEC_LONG_FRAMES, 6, 6, 64, "full"),
+               (1, ENCDEC_TRAIN_TOKENS, ENCDEC_LONG_FRAMES, 6, 6, 64, "full"),
+               (GEN_BATCH, 1, ENCDEC_LONG_FRAMES, 6, 6, 64, "full"),
+               (2, 97, 1000, 4, 2, 64, "full")]
 FLASH_BF16_REL_NORM = 1e-2
 
 
 def _flash_inputs(gen, case, dtype):
-    """q, k, v of one case: fresh tensors, or (``case`` of FLASH_FUSED's
-    length) views of one fused projection."""
+    """q, k, v of one case: fresh tensors (a FLASH_CROSS case: Sq queries
+    against Sk keys), or (``case`` of FLASH_FUSED's length) views of one
+    fused projection."""
+    if len(case) == len(FLASH_CROSS[0]):
+        B, Sq, Sk, H, Hkv, hd, kind = case
+        return (_randn(gen, (B, Sq, H, hd), dtype),
+                _randn(gen, (B, Sk, Hkv, hd), dtype),
+                _randn(gen, (B, Sk, Hkv, hd), dtype), (kind, 0, 0))
     if len(case) == len(FLASH_FUSED):
         B, S, H, Hkv, hd = case
         qkv = _randn(gen, (B, S, H + 2 * Hkv, hd), dtype)
@@ -908,13 +1008,15 @@ def _flash_inputs(gen, case, dtype):
 
 def check_flash(gen):
     """``flash_attention`` against its plain version on the card (f32 and
-    bf16), one launch a call; then what the wrapper must refuse.  The
-    errors of the cases at the serving lengths (max abs and relative norm)
-    are kept by case."""
+    bf16), one launch a call, FLASH_CROSS's full-mask cases among them,
+    and on layer slices of a stacked cross-KV cache; then what the wrapper
+    must refuse.  The errors of the cases at the serving lengths and of
+    FLASH_CROSS (max abs and relative norm) are kept by case."""
     r = {"max_abs_err": 0.0, "max_abs_err_bf16": 0.0, "cases": 0,
-         "serve_len_max_abs_err": {}, "serve_len_rel_norm_err": {}}
+         "serve_len_max_abs_err": {}, "serve_len_rel_norm_err": {},
+         "cross_max_abs_err": {}, "cross_rel_norm_err": {}}
     for dtype in (F32, torch.bfloat16):
-        for case in FLASH + FLASH_FWD_EDGES + [FLASH_FUSED]:
+        for case in FLASH + FLASH_FWD_EDGES + [FLASH_FUSED] + FLASH_CROSS:
             q, k, v, (kind, w, p0) = _flash_inputs(gen, case, dtype)
             H, Hkv = q.shape[2], k.shape[2]
             n0 = flash_attn.LAUNCHES["flash_attention"]
@@ -936,6 +1038,10 @@ def check_flash(gen):
                 r["serve_len_max_abs_err"][f"{case[:5]} {dtype}"] = e
                 r["serve_len_rel_norm_err"][f"{case[:5]} {dtype}"] = ((
                     got.float() - want.float()).norm() / want.float().norm()).item()
+            if case in FLASH_CROSS:
+                r["cross_max_abs_err"][f"{case[:6]} {dtype}"] = e
+                r["cross_rel_norm_err"][f"{case[:6]} {dtype}"] = ((
+                    got.float() - want.float()).norm() / want.float().norm()).item()
             if dtype == torch.bfloat16:
                 # at long S the outputs are small (about 0.03 for S = 4096),
                 # so the elementwise 2e-2 alone is loose: the error's norm
@@ -948,6 +1054,7 @@ def check_flash(gen):
                 r["max_rel_norm_err_bf16"] = max(
                     r.get("max_rel_norm_err_bf16", 0.0), rel)
             r["cases"] += 1
+    r["cross_kv_cache_slices"] = _flash_on_cache_slices(gen)
     x = _randn(gen, (1, 64, 2, 48), F32)
     y = _randn(gen, (1, 64, 2, 64), F32)
     # TMA takes bases and strides in multiples of 16 bytes: a head stride of
@@ -990,6 +1097,33 @@ def check_flash(gen):
     return r
 
 
+def _flash_on_cache_slices(gen):
+    """The encoder-decoder's decode reads the cross-KV as layer slices of
+    its stacked (L, B, F, Hkv, hd) cache: each slice is taken by TMA in
+    place (``tma_refusal`` finds nothing to refuse; nothing is copied) and
+    one query row a request against 3000 keys matches the plain version.
+    Returns the max abs error over the layers (f32, the decode's type)."""
+    L, (B, Sq, Sk, H, Hkv, hd, kind) = 4, FLASH_CROSS[2]
+    xk = _randn(gen, (L, B, Sk, Hkv, hd), F32)
+    xv = _randn(gen, (L, B, Sk, Hkv, hd), F32)
+    q = _randn(gen, (B, Sq, H, hd), F32)
+    err = 0.0
+    for k, v in zip(torch.unbind(xk), torch.unbind(xv)):
+        why = flash_attn.tma_refusal("k", k) or flash_attn.tma_refusal("v", v)
+        if why:
+            fail(f"flash_attention on a cross-KV cache slice: {why}")
+        n0 = flash_attn.LAUNCHES["flash_attention"]
+        got = flash_attn.flash_attention_gqa(q, k, v, H // Hkv, mask_kind=kind)
+        torch.cuda.synchronize()
+        if flash_attn.LAUNCHES["flash_attention"] != n0 + 1:
+            fail("flash_attention on a cache slice did not launch once")
+        want = flash_attn.flash_attention_gqa_plain(q, k, v, H // Hkv,
+                                                    mask_kind=kind)
+        err = max(err, _close("flash_attention on a cross-KV cache slice",
+                              got, want, TOL[F32]))
+    return {"layers": L, "shape": [B, Sq, Sk, H, Hkv, hd], "max_abs_err": err}
+
+
 # The backward's tolerances against the plain version's autograd (TF32 off):
 # the kernel runs its products as 3xTF32 (about 1e-6 relative) and sums in
 # f32 in other orders than the plain loop's einsums, over up to S keys; bf16
@@ -1010,17 +1144,18 @@ def check_flash_bwd(gen):
     card over the forward's sweep (the 4096-token serve shapes with
     q_per_kv = 2 and 1, the VLM's 4352 positions with q_per_kv = 6, a
     window, query offsets, hd 32 and 64 with ragged S,
-    views of one fused projection) and the backward's edges
-    (FLASH_BWD_EDGES), f32 and bf16: one backward launch a call; the same
-    bits on a second call (no atomics); and the forward's output with the
-    log-sum-exp residual written bitwise the output without it.  The
-    relative error norms of the cases at the serving length are kept by
-    case."""
+    views of one fused projection), the backward's edges
+    (FLASH_BWD_EDGES) and the full-mask cases of FLASH_CROSS (dK / dV over
+    3000 keys from 448 queries or one), f32 and bf16: one backward launch
+    a call; the same bits on a second call (no atomics); and the forward's
+    output with the log-sum-exp residual written bitwise the output
+    without it.  The relative error norms of the cases at the serving
+    length and of FLASH_CROSS are kept by case."""
     r = {"max_abs_err": 0.0, "max_rel_norm_err": 0.0,
          "max_rel_norm_err_bf16": 0.0, "cases": 0,
-         "serve_len_max_rel_norm_err": {}}
+         "serve_len_max_rel_norm_err": {}, "cross_max_rel_norm_err": {}}
     for dtype in (F32, torch.bfloat16):
-        for case in FLASH + FLASH_BWD_EDGES + [FLASH_FUSED]:
+        for case in FLASH + FLASH_BWD_EDGES + [FLASH_FUSED] + FLASH_CROSS:
             q, k, v, (kind, w, p0) = _flash_inputs(gen, case, dtype)
             g = q.shape[2] // k.shape[2]
             dout = _randn(gen, tuple(q.shape), dtype)
@@ -1063,9 +1198,10 @@ def check_flash_bwd(gen):
                 else:
                     r["max_rel_norm_err_bf16"] = max(
                         r["max_rel_norm_err_bf16"], rel)
-                if case[1] in (SERVE_SEQ, VLM_SEQ):
-                    by = r["serve_len_max_rel_norm_err"]
-                    key = f"{case[:5]} {dtype}"
+                if case[1] in (SERVE_SEQ, VLM_SEQ) or case in FLASH_CROSS:
+                    by = r["cross_max_rel_norm_err" if case in FLASH_CROSS
+                           else "serve_len_max_rel_norm_err"]
+                    key = f"{case[:6 if case in FLASH_CROSS else 5]} {dtype}"
                     by[key] = max(by.get(key, 0.0), rel)
             r["cases"] += 1
     r["tolerance"] = {"f32_rel_norm": 1e-5,
@@ -1211,62 +1347,77 @@ def _operands(kind, shape, m, dtype, out_dtype, gen):
             n_in * isz + 4 * L * m * 4, 2 * n_in * m + 6 * L * m)
 
 
+def _flash_case(shape):
+    """``(B, S, H, Hkv, hd)`` (causal, Sq = Sk = S) or a FLASH_CROSS case
+    ``(B, Sq, Sk, H, Hkv, hd, "full")`` -> (B, Sq, Sk, H, Hkv, hd, kind,
+    the (query, key) pairs the mask admits a head)."""
+    if len(shape) == 5:
+        B, S, H, Hkv, hd = shape
+        return B, S, S, H, Hkv, hd, "causal", S * (S + 1) // 2
+    B, Sq, Sk, H, Hkv, hd, kind = shape
+    if kind != "full":
+        raise ValueError(f"timed cross cases take the full mask, not {kind}")
+    return B, Sq, Sk, H, Hkv, hd, kind, Sq * Sk
+
+
 def _flash_operands(shape, dtype, gen, isz):
-    """Causal attention at ``(B, S, H, Hkv, hd)``: the kernel, the plain
+    """Attention at ``shape`` (``_flash_case``): the kernel, the plain
     version and ``scaled_dot_product_attention`` in the same type (the
     yardstick; the port never calls it) on the same q, k, v.  Operations:
-    the pairs the causal mask admits, S (S + 1) / 2 per head, times 2 hd for
-    the scores and 2 hd for P V; bytes: q, k, v read once, the output
-    written once."""
-    B, S, H, Hkv, hd = shape
+    the pairs the mask admits (S (S + 1) / 2 a head causal, Sq Sk full),
+    times 2 hd for the scores and 2 hd for P V; bytes: q, k, v read once,
+    the output written once."""
+    B, Sq, Sk, H, Hkv, hd, kind, pairs = _flash_case(shape)
     g = H // Hkv
 
     def make():
-        return (_randn(gen, (B, S, H, hd), dtype),
-                _randn(gen, (B, S, Hkv, hd), dtype),
-                _randn(gen, (B, S, Hkv, hd), dtype))
+        return (_randn(gen, (B, Sq, H, hd), dtype),
+                _randn(gen, (B, Sk, Hkv, hd), dtype),
+                _randn(gen, (B, Sk, Hkv, hd), dtype))
 
     def library(o):
         q, k, v = (x.transpose(1, 2) for x in o)
         return torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=g > 1)
+            q, k, v, is_causal=kind == "causal", enable_gqa=g > 1)
 
-    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * isz
-    flops = 4 * hd * B * H * S * (S + 1) // 2
-    return (make, lambda o: flash_attn.flash_attention_gqa(*o, g),
-            lambda o: flash_attn.flash_attention_gqa_plain(*o, g),
+    nbytes = (2 * B * Sq * H * hd + 2 * B * Sk * Hkv * hd) * isz
+    flops = 4 * hd * B * H * pairs
+    return (make,
+            lambda o: flash_attn.flash_attention_gqa(*o, g, mask_kind=kind),
+            lambda o: flash_attn.flash_attention_gqa_plain(*o, g,
+                                                           mask_kind=kind),
             library, nbytes, flops)
 
 
 def _flash_bwd_operands(shape, dtype, gen, isz):
-    """The causal backward at ``(B, S, H, Hkv, hd)``: the kernels on a
+    """The backward at ``shape`` (``_flash_case``): the kernels on a
     forward's output and residual; the plain version's autograd backward
     and ``scaled_dot_product_attention``'s backward in the same type (the
     yardstick; the port never calls it), each on a graph built once and
     kept.  Operations: the five products of the gradient over the pairs
-    the causal mask admits (S, dP, dV, dQ, dK), 2 hd each a pair and head;
-    bytes: q, k, v, o, dO and the residual read once, dq, dk, dv written
-    once."""
-    B, S, H, Hkv, hd = shape
+    the mask admits (S, dP, dV, dQ, dK), 2 hd each a pair and head; bytes:
+    q, k, v, o, dO and the residual read once, dq, dk, dv written once."""
+    B, Sq, Sk, H, Hkv, hd, kind, pairs = _flash_case(shape)
     g = H // Hkv
 
     def make():
-        q = _randn(gen, (B, S, H, hd), dtype)
-        k = _randn(gen, (B, S, Hkv, hd), dtype)
-        v = _randn(gen, (B, S, Hkv, hd), dtype)
-        dout = _randn(gen, (B, S, H, hd), dtype)
-        out, lse = flash_attn._forward(q, k, v, "causal", 0, 0, residual=True)
+        q = _randn(gen, (B, Sq, H, hd), dtype)
+        k = _randn(gen, (B, Sk, Hkv, hd), dtype)
+        v = _randn(gen, (B, Sk, Hkv, hd), dtype)
+        dout = _randn(gen, (B, Sq, H, hd), dtype)
+        out, lse = flash_attn._forward(q, k, v, kind, 0, 0, residual=True)
         leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-        plain = flash_attn.flash_attention_gqa_plain(*leaves, g)
+        plain = flash_attn.flash_attention_gqa_plain(*leaves, g,
+                                                     mask_kind=kind)
         sdpa_leaves = [x.transpose(1, 2).clone().requires_grad_()
                        for x in (q, k, v)]
         sdpa = torch.nn.functional.scaled_dot_product_attention(
-            *sdpa_leaves, is_causal=True, enable_gqa=g > 1)
+            *sdpa_leaves, is_causal=kind == "causal", enable_gqa=g > 1)
         return (q, k, v, out, lse, dout, leaves, plain, sdpa_leaves, sdpa,
                 dout.transpose(1, 2))
 
     def kernel(o):
-        return flash_attn.flash_attention_bwd(*o[:6])
+        return flash_attn.flash_attention_bwd(*o[:6], mask_kind=kind)
 
     def plain(o):
         return torch.autograd.grad(o[7], o[6], o[5], retain_graph=True)
@@ -1274,8 +1425,9 @@ def _flash_bwd_operands(shape, dtype, gen, isz):
     def library(o):
         return torch.autograd.grad(o[9], o[8], o[10], retain_graph=True)
 
-    nbytes = (4 * B * S * H * hd + 4 * B * S * Hkv * hd) * isz + B * H * S * 4
-    flops = 5 * 2 * hd * B * H * S * (S + 1) // 2
+    nbytes = ((4 * B * Sq * H * hd + 4 * B * Sk * Hkv * hd) * isz
+              + B * H * Sq * 4)
+    flops = 5 * 2 * hd * B * H * pairs
     return make, kernel, plain, library, nbytes, flops
 
 
@@ -1957,7 +2109,11 @@ def run_checkpoint_resume(args):
 
 def _requests(rng, cfg, rows, seq=SERVE_SEQ):
     """``rows`` requests of ``seq`` tokens from ``rng``, and for a VLM
-    each one's patch embeddings (n_frontend_tokens, d_model) in f32."""
+    each one's patch embeddings (n_frontend_tokens, d_model) in f32; an
+    encoder-decoder's request is ``seq`` frame embeddings alone."""
+    if cfg.family == "encdec":
+        return {"embeds": rng.standard_normal((rows, seq, cfg.d_model),
+                                              dtype=np.float32)}
     req = {"tokens": rng.integers(0, cfg.vocab, (rows, seq),
                                   dtype=np.int32)}
     if cfg.family == "vlm":
@@ -1968,10 +2124,13 @@ def _requests(rng, cfg, rows, seq=SERVE_SEQ):
 
 def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
                    phase="serve", n_layers=None, reduced=None, seq=SERVE_SEQ,
-                   hedge=True):
+                   hedge=True, label=None, into=None):
     """``CodedServer`` on ``arch`` at full width with prompts of ``seq``
-    tokens (after their patch embeddings for a VLM), one prompt a subset;
-    ``n_layers`` cuts the depth (listed in the phase line's ``reduced``).
+    tokens (after their patch embeddings for a VLM; ``seq`` frames for an
+    encoder-decoder), one prompt a subset; ``n_layers`` cuts the depth
+    (listed in the phase line's ``reduced``).  ``label`` names the path
+    (default: the model's ``CodedServer.step``); with ``into`` a dict, the
+    phase line goes there instead of to the output.
 
     Counted window: the launch counts and the plain flash version's call
     count are set to 0 just before the batches are submitted and read just
@@ -1984,13 +2143,14 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     each layer drops on the first prompt; for an SSM model the device's
     idle share over a traced forward of a prompt's first SSM_TRACE_SEQ
     tokens (the forward a served batch runs n * d times, shorter), for a
-    hybrid over a traced forward of a whole prompt."""
+    hybrid or an encoder-decoder over a traced forward of a whole
+    prompt."""
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     code = make_code(*SERVE_CODE)
     k = code.num_subsets
-    label = f"{cfg.name} CodedServer.step"
+    label = label or f"{cfg.name} CodedServer.step"
     gc.collect()
     torch.cuda.empty_cache()
     at_start = torch.cuda.memory_allocated()
@@ -2032,7 +2192,7 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     peak = torch.cuda.max_memory_allocated()
     if plain_calls:
         fail(f"the serving path called the plain flash version {plain_calls} times")
-    per_prefill = attention_layers(cfg)
+    per_prefill = flash_layers(cfg, seq)
     want_batch = {"flash_attention": code.n * code.d * per_prefill,
                   "coded_encode_2d": code.n * code.d, "coded_decode_2d": 1}
     want_batch = {kk: v for kk, v in want_batch.items() if v}
@@ -2070,12 +2230,12 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
     if err > SERVE_REL_TOL * max(1.0, scale):
         fail(f"decoded logits differ from the uncoded forward by {err:.3e} "
              f"(max |logit| {scale:.3e}, tolerance {SERVE_REL_TOL} of it)")
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid", "encdec"):
         # the device's idle share over the forward of the first prompt
         # (an SSM's first SSM_TRACE_SEQ tokens: a whole prompt's 100 K
         # launches take the profiler half a minute to read), traced
         trace_seq = SSM_TRACE_SEQ if cfg.family == "ssm" else seq
-        one = {"tokens": first["tokens"][:1, :trace_seq]}
+        one = {key: v[:1, :trace_seq] for key, v in first.items()}
         with torch.no_grad():
             forward(params, one)
             torch.cuda.synchronize()
@@ -2097,12 +2257,14 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
         profile_steps(lambda: srv.serve_batch(batch0),
                       statistics.median(r.wall_s * 1e3 for r in results),
                       f"{cfg.name} coded serve batch", steps=1)
-    say(phase=phase, model=cfg.name, n_layers=cfg.n_layers,
+    line = dict(
+        phase=phase, path=label, model=cfg.name, n_layers=cfg.n_layers,
         d_model=cfg.d_model, params=n_params,
         param_bytes=sum(v.numel() * v.element_size() for v in params.values()),
         init_s=init_s, code=list(SERVE_CODE), batch_requests=k,
-        seq_len=seq, positions=first["tokens"].shape[1] + (
+        seq_len=seq, positions=seq + (
             cfg.n_frontend_tokens if cfg.family == "vlm" else 0),
+        flash_launches_per_prefill=per_prefill,
         batches=len(results), **({"reduced": reduced} if reduced else {}),
         stragglers=[list(r.stragglers) for r in results],
         wall_ms=[r.wall_s * 1e3 for r in results], step_ms=step_ms,
@@ -2113,6 +2275,10 @@ def run_serve_path(args, arch="qwen3-1.7b", n_batches=SERVE_BATCHES,
         max_abs_err_vs_uncoded=err, tolerance=SERVE_REL_TOL * max(1.0, scale),
         memory_at_start_bytes=at_start, **extra,
         seconds=time.perf_counter() - t0, nvidia_smi=nvidia_smi_line())
+    if into is None:
+        say(**line)
+    else:
+        into.update(line)
     return counts, len(results), params
 
 
@@ -3021,12 +3187,13 @@ class materialized_attention:
         model_common.CHUNK_THRESHOLD = self.old
 
 
-def _generate_counted(phase, eng, prompts, new, keep=()):
+def _generate_counted(phase, eng, prompts, new, keep=(), flash=None):
     """``eng.generate(prompts, new)`` counted from 0: the launch counts and
     the plain flash version's calls are set to 0 just before it and read at
     its prefill's logits and after it.  The prefill must launch the flash
     forward once a layer (an SSM model never), the decode never, and
-    nothing else; the tokens
+    nothing else (``flash``: the prefill's and a decode step's flash
+    launches instead, an encoder-decoder's); the tokens
     must lie in the vocabulary and every step's logits be finite.  Returns
     the run's record (the prefill's seconds and each decode step's ms from
     CUDA events, the median of steps 2 on) and the logits of the steps in
@@ -3061,12 +3228,13 @@ def _generate_counted(phase, eng, prompts, new, keep=()):
     plain = flash_attn.PLAIN_CALLS["flash_attention"]
     prefill_flash = flash_at[-1]
     decode_flash = counts["flash_attention"] - prefill_flash
-    want_flash = attention_layers(cfg)
-    if plain or prefill_flash != want_flash or decode_flash:
+    want_flash, per_step = flash or (attention_layers(cfg), 0)
+    if plain or prefill_flash != want_flash or \
+            decode_flash != per_step * new:
         fail(f"{phase}: flash launches {prefill_flash} in the prefill and "
              f"{decode_flash} in the decode, plain calls {plain}; expected "
-             f"{want_flash}, 0 and 0")
-    want = _expect(flash_attention=want_flash)
+             f"{want_flash}, {per_step * new} and 0")
+    want = _expect(flash_attention=want_flash + per_step * new)
     if counts != want:
         fail(f"{phase}: kernel launches {counts}, expected {want}")
     if tokens.shape != (len(prompts), new) or tokens.dtype != np.int32 or \
@@ -3093,9 +3261,18 @@ def _decode_bound(eng, params):
     """A decode step's byte bound: every weight but the input embedding
     (of which it reads B rows) and the KV cache, read once; an SSM model's
     recurrent state read once and written once; a hybrid's KV caches read
-    once, its SSM states and conv rings read once and written once."""
+    once, its SSM states and conv rings read once and written once; an
+    encoder-decoder's decoder weights and unembedding (not its encoder's,
+    nor the position rows of which it reads one), its self-KV ring and
+    cross-KV read once."""
+    if eng.cfg.family == "encdec":
+        def read(k):
+            return k.startswith("dec_layers/") or k in ("ln_f", "unembed")
+    else:
+        def read(k):
+            return k != "embed"
     weight_bytes = sum(v.numel() * v.element_size() for k, v in params.items()
-                       if k != "embed")
+                       if read(k))
     nbytes = {k: math.prod(shape) * torch.empty((), dtype=dt).element_size()
               for k, (shape, dt) in eng.arts.cache_shapes.items()}
     cache_bytes = sum(nbytes.values())
@@ -3105,6 +3282,9 @@ def _decode_bound(eng, params):
         state = {"decode_bytes_kv_cache": nbytes["k"] + nbytes["v"],
                  "decode_bytes_state_read_and_written":
                      2 * (nbytes["ssm"] + nbytes["conv"])}
+    elif eng.cfg.family == "encdec":
+        state = {"decode_bytes_kv_cache": nbytes["k"] + nbytes["v"],
+                 "decode_bytes_cross_kv": nbytes["xk"] + nbytes["xv"]}
     else:
         state = {"decode_bytes_kv_cache": cache_bytes}
     return {"decode_bytes_weights": weight_bytes, **state,
@@ -3554,6 +3734,131 @@ def run_generate_hybrid(args, params):
         seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
     return run["launches"]
 
+def run_generate_encdec(args, params, frames=None, new=ENCDEC_GEN_NEW,
+                        checked=ENCDEC_GEN_CHECKED, phase="generate_encdec",
+                        into=None):
+    """``BatchedEngine.generate`` on whisper-tiny at full width and depth
+    (the serve phase's seeded weights, f32): a batch of 4 on ``frames``
+    (default ENCDEC_FRAMES) zero frames (the reference engine's; the prompts fix only the batch),
+    ``new`` greedy tokens against the self-KV ring of 448 slots and the
+    cross-KV of every layer, counted as ``_generate_counted`` says: the
+    flash kernel in the prefill once an encoder layer and a decoder layer
+    (its one decode step's cross-attention) and once a decoder layer a
+    decode step, above ``CHUNK_THRESHOLD`` frames only, else never.  The
+    prefill's cache must have ``pos == 1``.  Outside the window: the
+    prefill and decode steps ``checked`` against the unrolled chain of the
+    port's own ``prefill`` and ``decode_step`` on the generated tokens
+    (the reference's decode semantics, decode against decode), within
+    GEN_TOL of the largest logit; the decode against the teacher-forced
+    ``decode_train`` over the same tokens at positions 0 and 7, printed
+    (ROADMAP C.7: the decode does not rotate q and k; 7 or, with fewer
+    tokens, the last); a decode step's median ms against its byte bound,
+    and the device's idle share over 3 traced decode steps.  With ``into`` a dict, the phase line goes there
+    instead of to the output."""
+    cfg = get_config(ENCDEC_ARCH)
+    frames = frames or ENCDEC_FRAMES
+    t_phase = time.perf_counter()
+    B = GEN_BATCH
+    prompts = np.zeros((B, 1), np.int32)
+    eng = BatchedEngine(cfg, params, batch=B, seq_len=frames, device=DEV)
+    prefill, seen = eng.arts.prefill, []
+
+    def prefill_kept(p, batch):
+        logits, cache = prefill(p, batch)
+        seen.append(cache["pos"])       # a device tensor: read after the run
+        return logits, cache
+
+    eng.arts = dataclasses.replace(eng.arts, prefill=prefill_kept)
+    # a decode step's cross-attention: the flash kernel above the threshold
+    per_step = cfg.n_layers if frames > model_common.CHUNK_THRESHOLD else 0
+    c7 = min(7, new - 1)           # the C.7 position beside position 0
+    run, kept = _generate_counted(phase, eng, prompts, new,
+                                  keep=(-1, c7 - 1, *checked),
+                                  flash=(flash_layers(cfg, frames), per_step))
+    tokens = run.pop("tokens")
+    if [int(p) for p in seen] != [1]:
+        fail(f"{phase}: the prefill's cache has pos "
+             f"{[int(p) for p in seen]}, not 1")
+
+    # ---- outside the window: the unrolled chain, decode against decode
+    t1 = time.perf_counter()
+    zeros = torch.zeros((B, frames, cfg.d_model), device=DEV)
+    toks = torch.from_numpy(tokens).to(DEV)
+    for t in checked:
+        if t + 1 < new and not torch.equal(
+                kept[t].argmax(-1).cpu(),
+                torch.from_numpy(tokens[:, t + 1]).long()):
+            fail(f"{phase}: token {t + 1} is not step {t}'s argmax")
+    with torch.no_grad():
+        logits, cache = model_api.make_prefill(cfg, frames)(
+            eng.params, {"embeds": zeros})
+        chain = {-1: logits}
+        decode = model_api.make_decode(cfg)
+        for t in range(max(checked) + 1):
+            logits, cache = decode(eng.params, cache, toks[:, t])
+            if t in checked:
+                chain[t] = logits
+    del cache
+    chain_errs, bitwise = {}, True
+    for t in (-1, *checked):
+        scale = chain[t].abs().max().item()
+        err = (kept[t] - chain[t]).abs().max().item()
+        bitwise = bitwise and torch.equal(kept[t], chain[t])
+        chain_errs[str(t)] = {"max_abs_err": err, "max_abs_logit": scale}
+        if not err <= GEN_TOL * scale:
+            fail(f"{phase}: decode step {t} differs from the unrolled chain "
+                 f"past {GEN_TOL} of the largest logit: {chain_errs[str(t)]}")
+    # ROADMAP C.7 on the card: the teacher-forced decoder over token 0 and
+    # the first c7 greedy tokens, at positions 0 (the prefill's logits) and
+    # c7 (decode step c7 - 1's)
+    forced = torch.cat([torch.zeros((B, 1), dtype=torch.int32, device=DEV),
+                        toks[:, :c7]], dim=1)
+    with torch.no_grad():
+        enc = encdec.encode(eng.params, cfg, zeros)
+        train = encdec.decode_train(eng.params, cfg, enc, forced)
+    scale = train.abs().max().item()
+    c7 = {f"position_{p}": (kept[p - 1] - train[:, p]).abs().max().item()
+          / scale for p in (0, c7)}
+    if not c7["position_0"] <= GEN_TOL:
+        fail(f"{phase}: the prefill's logits are not decode_train's at "
+             f"position 0, where RoPE is the identity: {c7}")
+    del kept, chain, enc, train
+    check_s = time.perf_counter() - t1
+    bound = _decode_bound(eng, params)
+    median_ms = run.pop("median_ms")
+    with torch.no_grad():
+        _, cache = eng.arts.prefill(eng.params, {"embeds": zeros})
+    tok = toks[:, 0]
+
+    def one_step():
+        nonlocal cache
+        _, cache = eng.arts.decode(eng.params, cache, tok)
+
+    one_step()                     # warm; 3 traced steps after it
+    busy_s, n_launch = _device_busy_s(lambda: [one_step() for _ in range(3)])
+    del cache
+    line = dict(
+        phase=phase, model=cfg.name, n_layers=cfg.n_layers,
+        enc_layers=cfg.enc_layers, d_model=cfg.d_model, batch=B,
+        frames=frames, max_new=new, dec_ctx=cfg.dec_ctx, dtype="float32",
+        weights="serve_encdec's, random from a seed; zero frames",
+        reduced={"weights": "random, seeded", "max_new": f"{new} tokens"},
+        **run, **bound,
+        decode_step_over_bound=median_ms / bound["decode_step_bound_ms"],
+        decode_device_busy_ms=busy_s * 1e3 / 3,
+        decode_launches=n_launch / 3,
+        decode_device_idle_share=1.0 - busy_s * 1e3 / 3 / median_ms,
+        cache_pos_after_prefill=1, decode_vs_unrolled_chain=chain_errs,
+        decode_equals_unrolled_chain_bitwise=bitwise, tolerance=GEN_TOL,
+        decode_vs_decode_train_rel_err=c7, check_s=check_s,
+        tokens_first_row=tokens[0].tolist(),
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    if into is None:
+        say(**line)
+    else:
+        into.update(line)
+    return run["launches"]
+
 
 # ----------------------------------------------------- LM training path
 def _digest(tensors):
@@ -3573,15 +3878,16 @@ def _digest(tensors):
     return out
 
 
-def _lm_expected(tr, steps, pipelined):
+def _lm_expected(tr, steps, pipelined, frames=None):
     """Launch counts ``steps`` calls of a Trainer on the LM issue: flash
     forward twice a layer and subset (the checkpoint recomputes it), its
-    backward once, one encode a coded leaf and subset (2D for a 1-D leaf,
-    3D for the others), one 2D decode (or fused decode-apply) a bucket and
-    retired update."""
+    backward once (an encoder-decoder on ``frames``: ``flash_layers``),
+    one encode a coded leaf and subset (2D for a 1-D leaf, 3D for the
+    others), one 2D decode (or fused decode-apply) a bucket and retired
+    update."""
     cfg, code = tr.cfg, tr.code
     subsets = code.n * code.d
-    layers = attention_layers(cfg)
+    layers = flash_layers(cfg, frames)
     coded = [k for k, pl in tr.arts.plans.items() if pl.coded]
     one_d = sum(1 for k in coded if tr.params[k].ndim == 1)
     buckets = len(tr.arts.pack_plan.buckets)
@@ -3903,7 +4209,8 @@ def run_train_ssm(args):
     its 24 layers on sequences of SSM_TRAIN_SEQ tokens: ``Trainer`` with NAG,
     code (4, 3, 1, 2), random stragglers, one sequence a subset, 2 steps
     counted from 0 (every leaf coded: a 2D encode for ``ln_f``, 3D for the
-    24 others, those of R = 6 on the scalar path, one decode a step; no
+    24 others, the stacked vectors on the scalar path (R = 3 at 6
+    layers), one decode a step; no
     flash launch); outside the window the
     decoded gradient with a straggler against the uncoded one, and one
     subset's gradient twice, bitwise."""
@@ -3919,7 +4226,8 @@ def run_train_ssm(args):
                             f"7.8-9.6 s on the card)",
                  "n_layers": f"{SSM_TRAIN_LAYERS} of 24 (with the hybrid "
                              f"phases the script took 928.1 and 974.8 s on "
-                             f"the card, past its 900 s)"})}
+                             f"the card at 24 layers, with the encdec "
+                             f"phases 938.9 s at 12; its limit is 900 s)"})}
 
 
 def run_train_hybrid(args):
@@ -3947,6 +4255,98 @@ def run_train_hybrid(args):
                             f"took 928.1-974.8 s, past its 900 s)"})}
 
 
+def run_train_encdec(args):
+    """Coded training of whisper-tiny at full width and full depth (4 + 4
+    layers) on sequences of 1500 frames and ENCDEC_TRAIN_TOKENS decoder
+    tokens: ``Trainer`` with NAG, code (4, 3, 1, 2), random stragglers, one
+    sequence a subset, 2 steps counted from 0: per step 24 2D encodes
+    (``enc_ln_f``, ``ln_f``), 324 3D (24 of them on the scalar path:
+    ``embed`` and ``unembed``, rows of the odd vocabulary 51865), 1 decode
+    and no flash launch (1500 frames: the materialized softmax); step 0's
+    decoded gradient (a straggler) against the uncoded one taken before
+    the window, and one subset's gradient twice, bitwise."""
+    cfg = get_config(ENCDEC_ARCH)
+    code = make_code(*LM_CODE)
+    label = f"{ENCDEC_ARCH} Trainer.step"
+    return {label: _train_lm(
+        args, label, cfg, code, nag(LM_NAG_LR), None,
+        _lm_batches(cfg, code, ENCDEC_TRAIN_TOKENS, ENCDEC_TRAIN_STEPS),
+        phase="train_encdec", check_first_step=True)}
+
+
+def run_long_encdec(args):
+    """whisper-tiny at ENCDEC_LONG_FRAMES = 3000 frames (60 s of audio,
+    ``enc_pos`` tiled twice), above ``CHUNK_THRESHOLD``: the encoder's
+    self-attention and every cross-attention run the flash kernels with
+    the full mask, forward and backward.  One served batch (96 flash
+    launches: 4 encoder and 4 cross at Sq = 1 a prefill; each subset
+    against its uncoded forward), ENCDEC_LONG_GEN_NEW generated tokens (8
+    flash launches in the prefill, 4 a decode step; the unrolled chain),
+    one training step on 448 tokens (16 flash forwards a subset, the
+    checkpoint recomputing each, and 8 backwards; the decoded gradient
+    against the uncoded one), each counted from 0 by its own function;
+    the plain flash version is never called over the phase.  One line,
+    the three parts' lines inside it."""
+    cfg = get_config(ENCDEC_ARCH)
+    F = ENCDEC_LONG_FRAMES
+    t0 = time.perf_counter()
+    parts, counts = {}, {}
+    # every call of the plain flash version over the phase, outside the
+    # parts' counted windows too (each part resets PLAIN_CALLS at its own)
+    plain_fn, plain = flash_attn.flash_attention_gqa_plain, [0]
+
+    def counted_plain(*a, **kw):
+        plain[0] += 1
+        return plain_fn(*a, **kw)
+
+    flash_attn.flash_attention_gqa_plain = counted_plain
+    try:
+        _long_encdec_parts(args, cfg, F, parts, counts)
+    finally:
+        flash_attn.flash_attention_gqa_plain = plain_fn
+    if plain[0]:
+        fail(f"long_encdec: the plain flash version ran {plain[0]} times")
+    flash = {label: {k: c[k] for k in ("flash_attention",
+                                        "flash_attention_bwd")}
+             for label, c in counts.items()}
+    say(phase="long_encdec", model=cfg.name, frames=F,
+        reduced={"max_new": f"{ENCDEC_LONG_GEN_NEW} tokens, cut from 8 "
+                            f"(0.13 s) when the script took 938.9 s"},
+        flash_launches_by_path=flash, plain_flash_calls=plain[0],
+        **parts, seconds=time.perf_counter() - t0,
+        nvidia_smi=nvidia_smi_line())
+    return counts
+
+
+def _long_encdec_parts(args, cfg, F, parts, counts):
+    """``run_long_encdec``'s three parts: their lines into ``parts``, their
+    launch counts into ``counts`` by path."""
+    serve_label = f"{ENCDEC_ARCH} CodedServer.step at {F} frames"
+    parts["serve"] = {}
+    counts[serve_label], _, params = run_serve_path(
+        args, ENCDEC_ARCH, 1, phase="long_encdec", seq=F, hedge=False,
+        label=serve_label, into=parts["serve"],
+        reduced={"weights": "random, seeded", "batches": 1})
+    parts["generate"] = {}
+    counts[f"{ENCDEC_ARCH} BatchedEngine.generate at {F} frames"] = \
+        run_generate_encdec(args, params, F, ENCDEC_LONG_GEN_NEW,
+                            ENCDEC_LONG_GEN_CHECKED, phase="long_encdec",
+                            into=parts["generate"])
+    del params
+    code = make_code(*LM_CODE)
+    batches = _lm_batches(cfg, code, ENCDEC_TRAIN_TOKENS, 1)
+    batches[0]["embeds"] = torch.randn(
+        (code.num_subsets, F, cfg.d_model),
+        generator=torch.Generator(device=DEV).manual_seed(SEED + 29),
+        device=DEV)
+    train_label = f"{ENCDEC_ARCH} Trainer.step at {F} frames"
+    parts["train"] = {}
+    counts[train_label] = _train_lm(
+        args, train_label, cfg, code, nag(LM_NAG_LR), None, batches,
+        phase="long_encdec", check_first_step=True, into=parts["train"],
+        reduced={"steps": "1 (the flash kernels' training modes, once)"})
+
+
 def _subset_grad_repeats(tr, batch):
     """One subset's gradient computed twice gives the same bits (compared
     through exact digests, one gradient on the card at a time)."""
@@ -3965,7 +4365,8 @@ def _subset_grad_repeats(tr, batch):
 
 
 def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
-              checkpoint=False, reduced=None, check_first_step=False):
+              checkpoint=False, reduced=None, check_first_step=False,
+              into=None):
     """One LM training path: build the ``Trainer``, its steps counted from
     0, the checks outside the window, the phase line; returns the counts.
 
@@ -3975,9 +4376,12 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
     the uncoded gradient of the same batch at the same parameters, taken
     before the window; a second call of one sequence's gradient reuses
     that loop.  Otherwise the decoded gradient is an extra coded aggregate
-    with straggler 1 after the steps."""
+    with straggler 1 after the steps.  With ``into`` a dict, the phase line
+    goes there instead of to the output."""
     pipelined = spec is not None
     steps, seq = len(batches), batches[0]["tokens"].shape[1]
+    frames = (batches[0]["embeds"].shape[1] if cfg.family == "encdec"
+              else None)
     gc.collect()           # the last path's trainer, and any cycles
     torch.cuda.empty_cache()
     at_start = torch.cuda.memory_allocated()
@@ -4000,7 +4404,7 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
         torch.cuda.synchronize()
         uncoded_s = time.perf_counter() - t1
     logs, counts, paths, peak = _lm_run(tr, batches, label, drain=pipelined)
-    want = _lm_expected(tr, steps, pipelined)
+    want = _lm_expected(tr, steps, pipelined, frames)
     _lm_check_run(label, tr, logs, counts, want, steps)
     _lm_check_paths(label, tr, paths, pipelined, steps)
     steps_ms = [m["wall_ms"] for m in logs[:steps]]
@@ -4043,13 +4447,16 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
     torch.cuda.synchronize()
     check["seconds"] = time.perf_counter() - t0
     check["check_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
-    if args.profile and not pipelined:
-        profile_steps(lambda: tr.step(batches[0]),
-                      statistics.median(steps_ms[1:]), label, steps=1)
+    after_first = statistics.median(steps_ms[1:]) if steps > 1 else None
+    if args.profile and not pipelined and after_first is not None:
+        profile_steps(lambda: tr.step(batches[0]), after_first, label,
+                      steps=1)
     n_params = sum(v.numel() for v in tr.params.values())
-    say(phase=phase, path=label, model=cfg.name,
+    line = dict(
+        phase=phase, path=label, model=cfg.name,
         n_layers=cfg.n_layers, d_model=cfg.d_model, params=n_params,
-        seq_len=seq, code=[code.n, code.d, code.s, code.m],
+        seq_len=seq, **({"frames": frames} if frames else {}),
+        code=[code.n, code.d, code.s, code.m],
         global_batch=code.num_subsets, steps=steps,
         optimizer="sgd_momentum" if pipelined else "nag",
         lr=LM_SGD_LR if pipelined else LM_NAG_LR,
@@ -4063,7 +4470,7 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
         losses=[m["loss"] for m in logs],
         grad_norm=[m["grad_norm"] for m in logs],
         step_ms=[m["wall_ms"] for m in logs],
-        step_ms_median_after_first=statistics.median(steps_ms[1:]),
+        step_ms_median_after_first=after_first,
         launches=counts, launches_expected=want,
         launches_per_step={k: v / steps for k, v in counts.items() if v},
         launches_by_kernel_path=paths,
@@ -4072,6 +4479,10 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
         peak_memory_bytes=peak,
         memory_limit_bytes=torch.cuda.get_device_properties(0).total_memory,
         nvidia_smi=nvidia_smi_line(), **check)
+    if into is None:
+        say(**line)
+    else:
+        into.update(line)
     if ckpt_dir is not None:
         try:
             checkpoint_lm(tr)
@@ -4134,31 +4545,38 @@ def main():
                             measure("flash", (1, VLM_SEQ, 48, 8, 128)),
                             measure("flash", (1, SERVE_SEQ, 32, 32, 64)),
                             measure("flash", (GEN_BATCH, GEN_PROMPT, 32, 32,
-                                              64))],
+                                              64)),
+                            measure("flash", FLASH_CROSS[0]),
+                            measure("flash", FLASH_CROSS[1])],
         "flash_attention_bwd": [measure("flash_bwd", (1, LM_SEQ, 16, 8, 128),
                                         dtype=torch.bfloat16,
                                         out_dtype=torch.bfloat16),
                                 measure("flash_bwd", (1, VLM_SEQ, 48, 8, 128)),
-                                measure("flash_bwd", (1, LM_SEQ, 32, 32, 64))],
+                                measure("flash_bwd", (1, LM_SEQ, 32, 32, 64)),
+                                measure("flash_bwd", FLASH_CROSS[1])],
         "coded_encode_2d": [measure("encode", (4, 4194304, 2)),
                             measure("encode", (1, 171737, 2), dtype=torch.bfloat16,
                                     out_dtype=torch.bfloat16),
                             measure("encode", MOE_ENC),
                             measure("encode", VLM_ENC),
-                            measure("encode", HYBRID_ENC)],
+                            measure("encode", HYBRID_ENC),
+                            measure("encode", ENCDEC_ENC)],
         "coded_encode_3d": [measure("encode", (4, 3072, 2, 2048)),
                             measure("encode", VLM_UNEMBED_ENC),
                             measure("encode", SSM_ENC3D[0]),
                             measure("encode", HYBRID_ENC3D[0],
                                     device_draw=True),
-                            measure("encode", HYBRID_ENC3D[1])],
+                            measure("encode", HYBRID_ENC3D[1]),
+                            measure("encode", ENCDEC_VOCAB_ENC)],
         "coded_decode_2d": [measure("decode", (8, 4194304), m=2),
                             measure("decode", (8, 4194304), m=2,
                                     dtype=torch.bfloat16),
                             measure("decode", MOE_DEC[:2], m=MOE_DEC[2]),
                             measure("decode", VLM_DEC[:2], m=VLM_DEC[2]),
                             measure("decode", HYBRID_DEC[:2],
-                                    m=HYBRID_DEC[2])],
+                                    m=HYBRID_DEC[2]),
+                            measure("decode", ENCDEC_DEC[:2],
+                                    m=ENCDEC_DEC[2])],
         "coded_decode_3d": [measure("decode", (8, 3072, 2048), m=2,
                                     dtype=torch.bfloat16)],
     }
@@ -4235,6 +4653,22 @@ def main():
     del params
     counts.update(run_train_hybrid(args))
     say(phase="hybrid_phases", seconds=time.perf_counter() - t_hybrid)
+    # the encoder-decoder phases, whisper-tiny at full width and depth
+    t_encdec = time.perf_counter()
+    counts[f"{ENCDEC_ARCH} CodedServer.step"], _, params = run_serve_path(
+        args, ENCDEC_ARCH, ENCDEC_SERVE_BATCHES, phase="serve_encdec",
+        seq=ENCDEC_FRAMES, hedge=False,
+        reduced={"weights": "random, seeded",
+                 "frames": "random, seeded (the feature extractor is a "
+                           "stub, as in the reference)",
+                 "batches": f"{ENCDEC_SERVE_BATCHES}; the hedge is not "
+                            f"re-run (qwen3's serve phase holds it)"})
+    counts[f"{ENCDEC_ARCH} BatchedEngine.generate"] = run_generate_encdec(
+        args, params)
+    del params
+    counts.update(run_train_encdec(args))
+    counts.update(run_long_encdec(args))
+    say(phase="encdec_phases", seconds=time.perf_counter() - t_encdec)
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined

@@ -15,6 +15,7 @@ _MODULES = {
     "internvl2-26b": "internvl2_26b",
     "xlstm-350m": "xlstm_350m",
     "zamba2-1.2b": "zamba2_1p2b",
+    "whisper-tiny": "whisper_tiny",
     "logistic-paper": "logistic_paper",
 }
 

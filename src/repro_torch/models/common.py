@@ -173,6 +173,14 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
                         wo.to(out.dtype).reshape(H * hd, -1))
 
 
+def attention(p: dict, cfg, x: torch.Tensor, pos: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """Self-attention with an explicit mask, always the materialized
+    softmax (the reference's ``attention``).  x: (B, S, D)."""
+    q, k, v = qkv_project(p, cfg, x, pos)
+    return _out_proj(gqa_scores_attend(q, k, v, mask, cfg.q_per_kv), p["wo"])
+
+
 # ----------------------------------------------- chunked (online-softmax)
 CHUNK_THRESHOLD = 2048  # switch to the online softmax above this length
 

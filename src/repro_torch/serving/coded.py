@@ -108,7 +108,7 @@ def make_coded_forward(cfg, code: GradCode, *,
     ``batch_per_subset`` is ``b``; the engine batch is ``B = k * b`` with
     ``k = code.num_subsets`` and arrives in the coded ``(n, d, b, ...)``
     layout.  ``seq_len`` is the LM families' prompt length the server pads
-    requests to.  ``device`` defaults to the card and raises when there is
+    requests to (an encdec request's frames).  ``device`` defaults to the card and raises when there is
     none; ``comm`` defaults to the single-process group of ``code.n``
     replicas on it.
     """
@@ -212,9 +212,12 @@ def _out_shape(cfg) -> tuple[int, ...]:
 
 def _subset_batch_shapes(cfg, b: int, seq: int) -> dict:
     """One subset's batch, ``{name: (shape, dtype)}`` (the forward's
-    per-slot operands); ``seq`` counts tokens, after a VLM's patches."""
+    per-slot operands); ``seq`` counts tokens, after a VLM's patches, and
+    an encdec request's frames, its only operand."""
     if cfg.family == "linear":
         return {"x": ((b, cfg.d_model), torch.float32)}
+    if cfg.family == "encdec":
+        return {"embeds": ((b, seq, cfg.d_model), cm.cdtype(cfg))}
     shapes = {"tokens": ((b, seq), torch.int32)}
     if cfg.family == "vlm":
         shapes["embeds"] = ((b, cfg.n_frontend_tokens, cfg.d_model),

@@ -4,7 +4,10 @@ the coded inference server.
 ``build_serve_artifacts`` / ``BatchedEngine`` run the model's prefill and
 decode steps on one device: a prompt batch is prefilled (its attention
 through the flash kernel on the card above 2048 tokens), then decoded one
-token a step against the cache, greedily.  The :class:`CodedServer` is the
+token a step against the cache, greedily (an encoder-decoder encodes its
+frames once, keeps their cross-KV and decodes against a self-KV ring; its
+cross-attention is the flash kernel above 2048 frames).  The
+:class:`CodedServer` is the
 paper's scheme applied to inference: batched forward passes ride the coded
 replica layout of ``repro_torch.serving.coded``; the engine decodes from
 the fastest ``n - s`` replicas (hedging: straggler payloads never reach the
@@ -59,8 +62,11 @@ def build_serve_artifacts(cfg, *, batch: int, seq_len: int, window: int = 0,
     S)})`` (a VLM's batch also holds ``"embeds": (batch, P, d_model)``,
     placed before the tokens) gives the last-token logits and a cache of
     ``seq_len`` positions, patches included (``min(seq_len, window)`` ring
-    slots with a window); ``decode(params, cache, token)`` consumes the
-    cache and returns it advanced.  Both run without autograd."""
+    slots with a window); an encdec batch is ``{"embeds": (batch, seq_len,
+    d_model)}``, ``seq_len`` frames, and its cache a self-KV ring of
+    ``dec_ctx`` slots and the frames' cross-KV.  ``decode(params, cache,
+    token)`` consumes the cache and returns it advanced.  Both run without
+    autograd."""
     dev = resolve_device(device)
     pre = model_api.make_prefill(cfg, seq_len, window=window)
 
@@ -97,10 +103,12 @@ class BatchedEngine:
         """prompts: (batch, prompt_len) int32 -> (batch, max_new) int32
         greedy tokens, on the host.  A VLM's prompts follow zero patch
         embeddings (``n_frontend_tokens`` of them), as the reference's
-        engine does.  A dense cache without a window (a ``hybrid``
-        model's shared-block KV caches too) must hold the patches, the
-        prompt and ``max_new`` tokens; an ``ssm`` model's recurrent state
-        holds any length.
+        engine does.  An encdec model decodes from ``seq_len`` zero frames
+        as the reference's engine does: the prompts fix only the batch,
+        and its self-cache, a ring of ``dec_ctx`` slots, wraps past it.
+        A dense cache without a window (a ``hybrid`` model's shared-block
+        KV caches too) must hold the patches, the prompt and ``max_new``
+        tokens; an ``ssm`` model's recurrent state holds any length.
 
         Tokens and positions stay on the device until the end (no host
         sync a token).  ``on_logits(t, logits)``, when given, sees the
@@ -120,10 +128,15 @@ class BatchedEngine:
             batch["embeds"] = torch.zeros(
                 (B, patches, self.cfg.d_model),
                 dtype=cm.cdtype(self.cfg), device=self.device)
-        # a recurrent (ssm) state has no positions: any length fits (a
-        # hybrid's KV caches have positions, as a dense cache's)
-        if self.cfg.family != "ssm" and not self.window and \
-                patches + P + max_new > self.seq_len:
+        if self.cfg.family == "encdec":
+            batch = {"embeds": torch.zeros(
+                (B, self.seq_len, self.cfg.d_model),
+                dtype=cm.cdtype(self.cfg), device=self.device)}
+        # a recurrent (ssm) state has no positions and an encdec self-cache
+        # is a ring: any length fits (a hybrid's KV caches have positions,
+        # as a dense cache's)
+        if self.cfg.family not in ("ssm", "encdec") and not self.window \
+                and patches + P + max_new > self.seq_len:
             raise ValueError(
                 f"a dense cache of {self.seq_len} positions cannot hold "
                 f"{patches} patches, a {P}-token prompt and {max_new} new "

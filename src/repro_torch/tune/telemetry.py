@@ -26,7 +26,7 @@ is the stationary injector; :class:`DriftingSampler` switches the underlying
 per-worker speed vector) at configured step boundaries, which is the drift
 scenario ``benchmarks/bench_autotune.py`` gates.
 
->>> from repro.core.runtime_model import RuntimeParams
+>>> from repro_torch.core.runtime_model import RuntimeParams
 >>> samp = ShiftedExpSampler(RuntimeParams(n=4, lambda1=1, lambda2=1,
 ...                                        t1=1.0, t2=2.0), seed=0)
 >>> wt = samp.draw(loads=(3,) * 4, k=4, m=2)

@@ -49,15 +49,25 @@ SPEEDS = (0.5, 1.0, 1.0, 1.5)
 
 
 def ast_without_imports(path) -> str:
-    """A module's syntax tree with every import statement removed, so a
-    relative import that replaces an absolute one (and re-aligns its
-    continuation lines) does not count as a difference."""
+    """A module's syntax tree with every import statement removed, doctest
+    imports in its strings too (``>>> from ...`` lines), so a relative
+    import that replaces an absolute one (and re-aligns its continuation
+    lines), or a doctest that imports the port's module where the
+    reference imports its own, does not count as a difference."""
     class _Strip(ast.NodeTransformer):
         def visit_Import(self, node):
             return None
 
         def visit_ImportFrom(self, node):
             return None
+
+        def visit_Constant(self, node):
+            if isinstance(node.value, str) and ">>> " in node.value:
+                node.value = "\n".join(
+                    ln for ln in node.value.split("\n")
+                    if not ln.strip().startswith((">>> import ",
+                                                  ">>> from ")))
+            return node
 
     tree = _Strip().visit(ast.parse(pathlib.Path(path).read_text()))
     return ast.dump(tree, include_attributes=False)

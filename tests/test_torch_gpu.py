@@ -1092,3 +1092,106 @@ def test_reduced_hybrid_coded_step_kernels_match_plain_backend():
     for k, v in out["ref"][0].items():
         torch.testing.assert_close(out["hopper"][0][k], v, rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_reduced_encdec_prefill_and_decode_on_the_card_match_the_cpu():
+    """Reduced whisper-tiny (2 + 2 layers) on 2112 frames, above
+    ``CHUNK_THRESHOLD``: the prefill runs the flash kernel in the encoder
+    (2 launches, full mask) and in the cross-attention of its one decode
+    step (2 launches at Sq = 1 against 2112 keys), each of 4 decode steps
+    2 cross-attention launches; against the same calls on the CPU (the
+    plain flash version): logits and every cache leaf at rtol = atol =
+    1e-4 of their scale; the decode updates the self-KV ring in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("whisper-tiny").reduced()
+    params = api.init(cfg, "cpu", torch.Generator().manual_seed(0))
+    F = 2112
+    frames = torch.randn(2, F, cfg.d_model,
+                         generator=torch.Generator().manual_seed(1))
+    toks = torch.randint(0, cfg.vocab, (2, 4),
+                         generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in params.items()}
+        n0 = flash_attn.LAUNCHES["flash_attention"]
+        with torch.no_grad():
+            lg, cache = api.make_prefill(cfg, F)(p, {"embeds": frames.to(dev)})
+        if dev == "cuda":
+            assert flash_attn.LAUNCHES["flash_attention"] == n0 + 4
+        held = {k: cache[k] for k in ("k", "v", "xk", "xv")}
+        logits = [lg.cpu()]
+        n1 = flash_attn.LAUNCHES["flash_attention"]
+        for i in range(4):
+            lg, cache = api.make_decode(cfg)(p, cache, toks[:, i].to(dev))
+            logits.append(lg.cpu())
+        if dev == "cuda":
+            assert flash_attn.LAUNCHES["flash_attention"] == n1 + 4 * 2
+        assert all(cache[k] is v for k, v in held.items())
+        assert int(cache["pos"]) == 5
+        out[dev] = (logits, {k: v.cpu() for k, v in cache.items()})
+    for a, b in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for k, b in out["cpu"][1].items():
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(out["cuda"][1][k], b, rtol=1e-4,
+                                   atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+def test_reduced_encdec_coded_step_kernels_match_plain_backend():
+    """Reduced whisper-tiny on 2112 frames and 64 tokens, through one
+    synchronous coded NAG step on the card, code (4, 3, 1, 2) with one
+    straggler: the kernel backend (24 2D encodes for ``enc_ln_f`` and
+    ``ln_f``, 324 3D for the 27 other leaves, one decode; the flash forward
+    twice and its backward once for each of the 2 encoder self-attentions
+    and 2 cross-attentions a subset, full mask, the cross-attention 64
+    queries against 2112 keys) against the plain coding backend on the
+    card, params at rtol 1e-4 / atol 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from repro_torch.coding import SchemeSpec
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_code
+    from repro_torch.data import CodedBatcher, make_synthetic_batch
+    from repro_torch.models import api
+    from repro_torch.optim import nag
+    from repro_torch.train import make_coded_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("whisper-tiny").reduced()
+    code = make_code(4, 3, 1, 2)
+    batch = make_synthetic_batch(np.random.default_rng(0), cfg, 4, 64)
+    batch["embeds"] = np.random.default_rng(1).standard_normal(
+        (4, 2112, cfg.d_model)).astype(np.float32)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+    params = api.init(cfg, "cuda", torch.Generator().manual_seed(0))
+    out = {}
+    for backend in ("hopper", "ref"):
+        arts = make_coded_train_step(cfg, code, nag(1e-2), device="cuda",
+                                     spec=SchemeSpec(backend=backend))
+        inp = arts.step_inputs((1,))
+        n0 = dict(ops.launch_counts())
+        newp, _, m = arts.step(params, nag(1e-2).init(params),
+                               CodedBatcher(code).place(batch), inp["W"],
+                               inp["mask"], inp["rho"])
+        launched = {k: v - n0[k] for k, v in ops.launch_counts().items()
+                    if v != n0[k]}
+        flash = {"flash_attention": 2 * 4 * 12, "flash_attention_bwd": 4 * 12}
+        if backend == "hopper":
+            assert launched == {"coded_encode_2d": 2 * 12,
+                                "coded_encode_3d": 27 * 12,
+                                "coded_decode_2d": 1, **flash}, launched
+        else:
+            assert launched == flash, launched
+        out[backend] = (newp, float(m["loss"]))
+    assert abs(out["hopper"][1] - out["ref"][1]) <= 1e-6 * abs(out["ref"][1])
+    for k, v in out["ref"][0].items():
+        torch.testing.assert_close(out["hopper"][0][k], v, rtol=1e-4,
+                                   atol=1e-5)

@@ -121,11 +121,35 @@ def test_hybrid_imports_with_jax_absent():
     assert res.stdout.split() == ["hybrid", "38", "6"]
 
 
+def test_encdec_imports_with_jax_absent():
+    """``jax`` made unimportable: the encoder-decoder and its config
+    import, and the config is served by name."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import repro_torch.models.encdec, repro_torch.configs
+        from repro_torch.configs import get_config
+        from repro_torch.models import api
+        cfg = get_config("whisper-tiny")
+        assert api.get_module(cfg) is repro_torch.models.encdec
+        print(cfg.family, cfg.enc_layers, cfg.n_layers, cfg.dec_ctx)
+    """)
+    res = subprocess.run([sys.executable, "-c", code], text=True,
+                         capture_output=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": ""})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["encdec", "4", "4", "448"]
+
+
 def test_no_source_line_imports_jax_or_the_reference():
+    """Neither a statement nor a doctest line (``>>> import`` / ``>>>
+    from``) imports JAX or the reference."""
     root = pathlib.Path(repro_torch.__file__).parent
     for p in root.rglob("*.py"):
         for ln in p.read_text().splitlines():
             s = ln.strip()
+            if s.startswith((">>> import ", ">>> from ")):
+                s = s[len(">>> "):]
             if s.startswith(("import ", "from ")):
                 assert not s.startswith(("import jax", "from jax",
                                          "import repro ", "import repro.",

@@ -98,14 +98,19 @@ def test_full_configs_and_their_capacities():
     assert math.prod(shapes["layers/moe/w_gate"].shape) == 2 ** 31
 
 
-@pytest.mark.parametrize("family", ["encdec"])
+@pytest.mark.parametrize("family", ["speech", "diffusion"])
 def test_families_not_ported_are_refused(family):
+    """A family outside the reference's zoo is refused, by a message that
+    lists the ported ones; every family of the zoo is ported, the
+    encoder-decoder last."""
     cfg = dataclasses.replace(tget_config("qwen3-1.7b").reduced(),
                               family=family)
     with pytest.raises(NotImplementedError, match=family):
         tapi.get_module(cfg)
-    with pytest.raises(NotImplementedError, match="'moe'"):
+    with pytest.raises(NotImplementedError, match="'encdec'.*'moe'"):
         tapi.make_loss(cfg)
+    from repro_torch.models import encdec as ted
+    assert tapi.get_module(tget_config("whisper-tiny")) is ted
 
 
 def test_hybrid_family_is_the_ports_mamba_hybrid():

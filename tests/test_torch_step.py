@@ -374,8 +374,8 @@ def test_linear_model_forward_and_loss_match_reference():
         np.asarray(jlin.predict_proba(jp, jcfg, b["x"])), rtol=1e-5, atol=1e-6)
     init = tapi.init(tcfg, "cpu")
     assert list(init) == ["beta"] and init["beta"].shape == (64,)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        tapi.make_loss(dataclasses.replace(tcfg, family="encdec"))
+    with pytest.raises(NotImplementedError, match="speech"):
+        tapi.make_loss(dataclasses.replace(tcfg, family="speech"))
 
 
 def test_synthetic_data_equals_reference_exactly():
@@ -395,7 +395,7 @@ def test_synthetic_data_equals_reference_exactly():
     assert dataclasses.asdict(tget_config("logistic-paper")) == \
         dataclasses.asdict(jget_config("logistic-paper"))
     with pytest.raises(KeyError):
-        tget_config("whisper-tiny")
+        tget_config("whisper-base")
 
 
 def test_straggler_sources_equal_reference():
