@@ -87,7 +87,7 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
   serve    the serving path: ``CodedServer`` on ``qwen3-1.7b`` at full width
            (28 layers, d_model 2048, random weights from a seed, f32) with
            code (4, 3, 1, 2), one request per subset and 4096-token prompts:
-           3 batches submitted and stepped, every prefill's attention through
+           2 batches submitted and stepped, every prefill's attention through
            the flash attention kernel (n * d * 28 = 336 launches a batch);
            the decoded logits against the uncoded forward of the same
            prompts, the hedge (a straggler's payload never reaches the
@@ -95,7 +95,7 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
   autotune_serve
            ``CodedServer(autotune=ServingPolicy(...))`` on the serve phase's
            weights, 4096-token prompts, from code (4, 3, 1, 2) under a
-           drifting timed source: 10 batches counted from 0, each batch's
+           drifting timed source: 7 batches counted from 0, each batch's
            flash launches (n * d * 28 of its scheme) and coding launches by
            path filed under its scheme, at least one change of code; each
            scheme's first batch against the uncoded forward, and one traced
@@ -127,9 +127,10 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
   train_lm coded training of the same ``qwen3-1.7b`` at full width on
            4096-token sequences, code (4, 3, 1, 2), one sequence a subset
            (a global batch of 4), random stragglers: ``Trainer`` with NAG
-           over all 28 layers, 3 steps; then the pipelined ``Trainer``
+           over all 28 layers, 2 steps; then the pipelined ``Trainer``
            (``fuse_apply=True``, SGD-momentum), also at full width and
-           depth, 3 steps and a drain.  Each
+           depth, 2 steps and a drain (3 steps each until the dist
+           phase came in).  Each
            path counted from 0: flash forward twice a layer and subset (the
            checkpoint recomputes it), its backward once, one encode a coded
            leaf and subset, one decode (or decode-apply) a bucket; no plain
@@ -160,7 +161,7 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
   train_moe
            the synchronous ``Trainer`` of train_lm on ``olmoe-1b-7b`` at full
            width and 4 of its 16 layers (cut: the f32 trainer at full depth
-           would need about 6.7 x 27.7 GB), 4096-token sequences, NAG, 3
+           would need about 6.7 x 27.7 GB), 4096-token sequences, NAG, 2
            steps counted as train_lm's; outside the window the decoded
            gradient with a straggler against the uncoded one, and one
            subset's gradient twice, bitwise (the dispatch sums in a fixed
@@ -188,7 +189,7 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            the synchronous ``Trainer`` of train_lm on ``internvl2-26b`` at
            full width and 2 of its 48 layers (7.67 GB of weights), one
            sequence of 256 patch embeddings and 4096 tokens a subset, the
-           loss on the text positions, NAG, 3 steps counted as train_lm's;
+           loss on the text positions, NAG, 2 steps counted as train_lm's;
            outside the window the decoded gradient with a straggler against
            the uncoded one, and one subset's gradient twice, bitwise.  The
            3D encodes of the leaves whose trailing elements are no whole
@@ -307,6 +308,25 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            backwards), each counted from 0 and checked as the 1500-frame
            phases; the plain flash version never runs over the phase.  The
            four phases' wall is printed as ``encdec_phases``
+  dist     (last: see main) the coded train step across processes on
+           the one card, two ``gloo`` ranks each computing half the workers
+           (``repro_torch.comm.DistComm``), each rank bitwise against the
+           single-process run: parameters and optimizer state by digest,
+           each step's loss and grad_norm, each step's collectives.  (a)
+           the launcher with ``--nproc 2 --dist-backend gloo`` on the launch
+           phase's flags, synchronous, against the launch phase's report
+           (half the encodes and every decode a rank); then its pipelined
+           job (``--optimizer sgd --pipelined --steps 2``) on a group of 2
+           ranks this script starts (``repro_torch.launch.ranks.run_ranks``)
+           against the same job in this process; (b) on that group, one
+           synchronous step of ``qwen3-1.7b`` at full width and 2 of its 28
+           layers on 512-token sequences, code (4, 3, 1, 2), against
+           ``LocalComm`` in this process: half the 3D and 2D encodes a
+           rank, the whole decode, no flash.  Each part prints the
+           transport, the bytes by collective and step and rank, the host
+           seconds inside the collectives (a device sync around each, timed
+           by the group's ranks; the launcher's ranks run untimed), the
+           step walls against the single process's, and peak memory by rank
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
@@ -420,14 +440,18 @@ PIPE_LR = 1e-6                 # SGD-momentum step of the pipelined path
 PATTERNS = ((2, 5), (), (0,))  # straggler sets of the chained parity checks
 SERVE_SEQ = 4096               # prompt length of the serving path
 SERVE_CODE = (4, 3, 1, 2)      # (n, d, s, m) of the serving path
-SERVE_BATCHES = 3              # batches the serve phase submits and steps
+SERVE_BATCHES = 2              # batches the serve phase submits and steps
+#                                (3 until the dist phase came in)
 # decoded logits against the uncoded forward of each subset's prompt alone,
 # as the coded forward runs it: f32 throughout, the forward's logits through
 # the encode's and the decode's weights; held to 1e-3 of the largest logit
 SERVE_REL_TOL = 1e-3
 LM_SEQ = 4096                  # tokens a sequence on the LM training path
 LM_CODE = (4, 3, 1, 2)         # (n, d, s, m): one sequence a subset
-LM_STEPS = 3                   # steps of each LM training path
+LM_STEPS = 2                   # steps of each LM training path (3 until the
+#                                dist phase came in: cut for the script's time)
+LM_STEPS_CUT = {"steps": f"{LM_STEPS}, cut from 3 for the script's time "
+                         f"(phase dist)"}
 LM_NAG_LR = 1e-3               # NAG step of the synchronous LM path
 LM_SGD_LR = 1e-3               # SGD-momentum step of the pipelined LM path
 # the decoded gradient with a straggler against the uncoded one: f32, the
@@ -2352,7 +2376,9 @@ AT_CODE = (8, 4, 2, 2)         # (n, d, s, m) the autotuned trainer starts at
 AT_STEPS = 16                  # steps of the autotuned logistic-paper run
 AT_PIPE_STEPS = 3              # pipelined steps before and after the swap
 AT_SERVE_CODE = (4, 3, 1, 2)   # the autotuned server's first scheme
-AT_SERVE_BATCHES = 10          # batches the autotuned server serves
+AT_SERVE_BATCHES = 7           # batches the autotuned server serves (10
+#                                until the dist phase came in; the code
+#                                changed at batch 6, and 5 batches ran one)
 # the drift of the reference's trainer tests (tests/test_tune.py:406-407):
 # communication-heavy (t2 = 16 s) before the switch, compute-heavy after
 AT_DRIFT = (dict(lambda1=0.5, lambda2=0.2, t1=0.5, t2=16.0),
@@ -3010,20 +3036,24 @@ LAUNCH_ARGV = ["--arch", "logistic-paper", "--full", "--n-data", "8", "--d",
                "--steps", "5", "--optimizer", "nag", "--lr", "1e-6",
                "--stragglers", "random"]
 # ``python -m repro_torch.launch.train`` as runpy runs it, then the kernel
-# launch counts and the library it loaded, as one JSON line
+# launch counts and the library it loaded, and every rank's report
+# (``launch.train.last_run``: one for --nproc 1), as one JSON line
 _LAUNCH_RUNNER = """
 import json, runpy, sys
 from repro_torch.kernels import _build, ops
-runpy.run_module("repro_torch.launch.train", run_name="__main__", alter_sys=True)
+g = runpy.run_module("repro_torch.launch.train", run_name="__main__",
+                     alter_sys=True)
 print(json.dumps({"launches": ops.launch_counts(), "paths": ops.path_counts(),
-                  "library": _build.last_build}))
+                  "library": _build.last_build, "reports": g["last_run"]}))
 """
 
 
 def run_launch(coded_fraction):
     """The training launcher as a subprocess (``PYTHONPATH=src``): exit 0, a
     finite final loss, the main path's coded fraction, the library phase
-    ``build`` made, and its launches."""
+    ``build`` made, and its launches.  Returns the counts and the run's
+    report (``launch.train.run_job``), phase ``dist``'s single-process
+    reference."""
     env = {**os.environ, "PYTHONPATH": str(HERE / "src")}
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-c", _LAUNCH_RUNNER, *LAUNCH_ARGV],
@@ -3055,7 +3085,268 @@ def run_launch(coded_fraction):
     say(phase="launch", argv=LAUNCH_ARGV, exit_code=res.returncode,
         final_line=lines[-2], step_lines=lines[:-2], launches=info["launches"],
         library=info["library"], seconds=wall, nvidia_smi=nvidia_smi_line())
-    return {label: info["launches"]}
+    return {label: info["launches"]}, info["reports"][0]
+
+
+DIST_NPROC = 2                 # ranks of the dist phase, on the one card
+DIST_BACKEND = "gloo"          # NCCL refuses two ranks on one device
+DIST_LM_LAYERS = 2             # of qwen3-1.7b's 28, as the other phases cut
+DIST_LM_SEQ = 512              # tokens a sequence: below flash's 2048
+DIST_LM_CODE = (4, 3, 1, 2)    # one sequence a subset
+DIST_TIMEOUT = 300             # seconds a subprocess or group of the phase
+#                                may take
+DIST_PIPE_STEPS = 2            # steps of the pipelined logistic-paper run:
+#                                a fill and a steady step, then a drain
+COLLECTIVES = ("all_gather", "all_to_all", "psum")
+
+
+def _run_group_cmd(cmd, what):
+    """Run a command that starts ranks, in a session of its own: past
+    DIST_TIMEOUT the whole session is killed, ranks included."""
+    env = {**os.environ, "PYTHONPATH": str(HERE / "src")}
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=HERE, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"dist: {what} took more than {DIST_TIMEOUT} s")
+    if proc.returncode != 0:
+        fail(f"dist: {what}: exit {proc.returncode}: {err[-4000:]}")
+    return out.strip().splitlines()
+
+
+def _step_ms(logs):
+    """Median wall of a run's steps after its first, in ms."""
+    walls = [m["step_time_s"] for m in logs[1:]] or \
+        [m["step_time_s"] for m in logs]
+    return statistics.median(walls) * 1e3
+
+
+def _time_collectives(comm):
+    """Time ``comm``'s collectives from here (the package's ``DistComm``
+    runs untimed): each call of ``all_gather``, ``all_to_all`` and ``psum``
+    is bracketed by device syncs, and its host seconds go, by kind, to the
+    last entry of the returned list.  Every ``comm.reset_counts``
+    (``run_job`` calls it before each step and before the drain) opens a
+    new entry, so entry ``k + 1`` holds step ``k``'s seconds."""
+    steps = [dict.fromkeys(COLLECTIVES, 0.0)]
+    reset = comm.reset_counts
+
+    def new_step():
+        reset()
+        steps.append(dict.fromkeys(COLLECTIVES, 0.0))
+
+    def timed(kind, fn):
+        def call(x):
+            torch.cuda.synchronize(comm.device)
+            t0 = time.perf_counter()
+            out = fn(x)
+            torch.cuda.synchronize(comm.device)
+            steps[-1][kind] += time.perf_counter() - t0
+            return out
+        return call
+
+    for kind in COLLECTIVES:
+        setattr(comm, kind, timed(kind, getattr(comm, kind)))
+    comm.reset_counts = new_step
+    return steps
+
+
+def _dist_rank(rank, nproc, device, jobs):
+    """One rank of the dist phase's group (spawned by ``run_ranks``: it
+    imports this script as a module first): each of ``jobs`` over a
+    ``DistComm`` whose collectives ``_time_collectives`` times, with its
+    kernel launches and peak memory counted from 0 and the replicas' state
+    digests compared after it.  Returns the jobs' reports."""
+    from repro_torch.comm import make_dist_comm
+    from repro_torch.launch import train as launch_train
+    reports = []
+    for job in jobs:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        comm = make_dist_comm(job.code[0], device=device)
+        seconds = _time_collectives(comm)
+        rep = launch_train.run_job(job, device, comm)
+        launch_train.check_replicas(rep["digest"], nproc)
+        rep.update(rank=rank, transport=comm.transport,
+                   collective_s=seconds[1:])
+        reports.append(rep)
+        del comm
+        gc.collect()
+        torch.cuda.empty_cache()
+    return reports
+
+
+def _dist_compare(what, single, ranks, launches):
+    """Hold every rank's report against the single-process one: the state
+    digest and each step's loss and grad_norm bitwise, the collectives'
+    counts and bytes, and each kernel's launches at ``launches(single
+    count)``; print what the ranks did."""
+    def bits(logs):
+        return [[np.float64(m[k]).tobytes().hex() for k in ("loss",
+                                                           "grad_norm")]
+                for m in logs]
+    for rep in ranks:
+        r = rep["rank"]
+        if rep["digest"] != single["digest"]:
+            fail(f"dist: {what}: rank {r}'s parameters and optimizer state "
+                 f"differ from the single-process run's")
+        if bits(rep["logs"]) != bits(single["logs"]):
+            fail(f"dist: {what}: rank {r}'s metrics differ: "
+                 f"{[m['loss'] for m in rep['logs']]} against "
+                 f"{[m['loss'] for m in single['logs']]}")
+        if rep["collectives"] != single["collectives"]:
+            fail(f"dist: {what}: rank {r}'s collectives "
+                 f"{rep['collectives']} against {single['collectives']}")
+        want = {k: launches(k, v) for k, v in single["launches"].items()}
+        if rep["launches"] != want:
+            fail(f"dist: {what}: rank {r} launched {rep['launches']}, "
+                 f"expected {want}")
+        paths = {k: {p: launches(k, c) for p, c in v.items()}
+                 for k, v in single["paths"].items()}
+        if rep["paths"] != paths:
+            fail(f"dist: {what}: rank {r}'s kernel paths {rep['paths']}, "
+                 f"expected {paths}")
+    timed = "collective_s" in ranks[0]
+    return {
+        "transport": {"backend": DIST_BACKEND,
+                      "rank_transport": ranks[0]["transport"],
+                      "staged_in_DistComm": False},
+        "bitwise": True,
+        "launches_single": {k: v for k, v in single["launches"].items() if v},
+        "launches_by_rank": [{k: v for k, v in rep["launches"].items() if v}
+                             for rep in ranks],
+        "paths_by_rank": [{k: v for k, v in rep["paths"].items()
+                           if any(v.values())} for rep in ranks],
+        "workers_by_rank": [rep["workers"] for rep in ranks],
+        "bytes_by_step_and_rank": [[c["bytes"] for c in rep["collectives"]]
+                                   for rep in ranks],
+        "collective_s_by_step_and_rank": (
+            [rep["collective_s"] for rep in ranks] if timed else
+            "not measured: the launcher's ranks run DistComm untimed (the "
+            "pipelined run times the same gathers)"),
+        "step_ms_median": {"single": _step_ms(single["logs"]),
+                           "by_rank": [_step_ms(rep["logs"])
+                                       for rep in ranks]},
+        "step_s": {"single": [m["step_time_s"] for m in single["logs"]],
+                   "by_rank": [[m["step_time_s"] for m in rep["logs"]]
+                               for rep in ranks]},
+        "peak_bytes": {"single": single["peak_bytes"],
+                       "by_rank": [rep["peak_bytes"] for rep in ranks]},
+        "loss": [m["loss"] for m in single["logs"]]}
+
+
+def _dist_check_launches(what, ranks, want, counts, label):
+    """Every rank's launches must be ``want``; they go to ``counts`` under
+    ``label`` and the rank."""
+    for rep in ranks:
+        if {k: v for k, v in rep["launches"].items() if v} != want:
+            fail(f"dist: {what}: rank {rep['rank']} launched "
+                 f"{rep['launches']}, expected {want}")
+        counts[f"{label} rank {rep['rank']}"] = rep["launches"]
+
+
+def run_dist(launch_report):
+    """The coded train step across processes, on the one card, each rank
+    held bitwise against the single-process run: parameters and optimizer
+    state by digest, each step's loss and grad_norm, each step's
+    collectives.  (a) logistic-paper at full width: the launcher with
+    ``--nproc 2 --dist-backend gloo`` on LAUNCH_ARGV, synchronous, against
+    the launch phase's run of the same flags (each rank half the encodes
+    and every decode); then the launcher's pipelined job (``--optimizer
+    sgd --pipelined --steps DIST_PIPE_STEPS``) on 2 ranks of this script's
+    group, against ``run_job`` in this process.  (b) one synchronous step
+    of qwen3-1.7b at full width and DIST_LM_LAYERS layers, DIST_LM_SEQ
+    tokens, code (4, 3, 1, 2), on the same group against ``LocalComm`` in
+    this process: the 3D and 2D encodes halved, the decode whole, no flash
+    launch.  The group (``run_ranks`` with ``_dist_rank``) times its
+    collectives; the launcher's ranks run as a user runs them."""
+    from repro_torch.launch import ranks as launch_ranks
+    from repro_torch.launch import train as launch_train
+    t_phase = time.perf_counter()
+    counts = {}
+    half = lambda k, v: v // DIST_NPROC if k.startswith("coded_encode") else v
+    flags = ["--nproc", str(DIST_NPROC), "--dist-backend", DIST_BACKEND]
+    argv = LAUNCH_ARGV + ["--device", "cuda"]
+    # (a), synchronous: the launcher
+    t0 = time.perf_counter()
+    lines = _run_group_cmd([sys.executable, "-c", _LAUNCH_RUNNER, *argv,
+                            *flags], f"launch.train --nproc {DIST_NPROC}")
+    wall = time.perf_counter() - t0
+    ranks = json.loads(lines[-1])["reports"]
+    final = re.fullmatch(r"final loss (\S+) \(coded fraction (\S+)\)",
+                         lines[-2])
+    if final is None or not lines[0].startswith(f"ranks {DIST_NPROC} "):
+        fail(f"dist: launcher output {lines[:2]} ... {lines[-2:-1]}")
+    out = _dist_compare("launch.train sync", launch_report, ranks, half)
+    _dist_check_launches("sync", ranks,
+                         {"coded_encode_2d": STEPS * 8 * 4 // DIST_NPROC,
+                          "coded_decode_2d": STEPS}, counts,
+                         f"launch.train --nproc {DIST_NPROC} sync")
+    say(phase="dist", part="a", mode="sync", model="logistic-paper",
+        argv=argv + flags, rank_map=lines[0], final_line=lines[-2], **out,
+        launcher_wall_s=wall, nvidia_smi=nvidia_smi_line())
+    # (a), pipelined, and (b): single-process runs here, then both jobs on
+    # one group of ranks
+    pipe_argv = argv + ["--optimizer", "sgd", "--pipelined", "--steps",
+                        str(DIST_PIPE_STEPS)]
+    pipe_job = launch_train.make_job(launch_train.parse_args(pipe_argv))
+    lm_job = launch_train.TrainJob(
+        cfg=dataclasses.replace(get_config("qwen3-1.7b"),
+                                n_layers=DIST_LM_LAYERS),
+        code=DIST_LM_CODE, optimizer="nag", lr=LM_NAG_LR,
+        spec=coding.SchemeSpec(schedule="gather"),
+        stragglers=RandomStragglers(seed=1), steps=1,
+        global_batch=DIST_LM_CODE[0], seq=DIST_LM_SEQ)
+    singles, single_s = [], []
+    for job in (pipe_job, lm_job):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        singles.append(launch_train.run_job(job, DEV))
+        single_s.append(time.perf_counter() - t0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    group = launch_ranks.run_ranks(_dist_rank, DIST_NPROC,
+                                   args=([pipe_job, lm_job],), device="cuda",
+                                   backend=DIST_BACKEND, timeout=DIST_TIMEOUT)
+    group_s = time.perf_counter() - t0
+    out = _dist_compare("pipelined", singles[0], [r[0] for r in group], half)
+    _dist_check_launches(
+        "pipelined", [r[0] for r in group],
+        {"coded_encode_acc_2d": DIST_PIPE_STEPS * 8 * 4 // DIST_NPROC,
+         "coded_decode_apply": DIST_PIPE_STEPS}, counts,
+        f"logistic-paper pipelined on {DIST_NPROC} ranks")
+    wall = {"single_s": single_s[0], "group_s_both_jobs": group_s}
+    say(phase="dist", part="a", mode="pipelined", model="logistic-paper",
+        argv=pipe_argv + flags, started_by="run_ranks in this script, the "
+        "launcher's job (launch.train.make_job of argv)", **out, wall=wall,
+        reduced={"steps": f"{DIST_PIPE_STEPS} and a drain, not {STEPS}: "
+                          f"for the script's time"},
+        nvidia_smi=nvidia_smi_line())
+    lm_ranks = [r[1] for r in group]
+    out = _dist_compare("qwen3-1.7b", singles[1], lm_ranks, half)
+    lm = out["launches_single"]
+    if (not lm.get("coded_encode_3d") or not lm.get("coded_decode_2d")
+            or lm.get("flash_attention") or lm.get("flash_attention_bwd")):
+        fail(f"dist: qwen3-1.7b launched {lm}: the 3D encode and the decode, "
+             f"and no flash, were expected")
+    _dist_check_launches("qwen3-1.7b", lm_ranks, {
+        k: half(k, v) for k, v in lm.items()}, counts,
+        f"qwen3-1.7b {DIST_LM_LAYERS} layers on {DIST_NPROC} ranks")
+    wall = {"single_s": single_s[1], "group_s_both_jobs": group_s}
+    say(phase="dist", part="b", model="qwen3-1.7b", n_layers=DIST_LM_LAYERS,
+        seq=DIST_LM_SEQ, code=list(DIST_LM_CODE), steps=1, schedule="gather",
+        optimizer="nag", **out, wall=wall,
+        reduced={"n_layers": f"{DIST_LM_LAYERS} of 28, as the other phases "
+                             f"cut depth", "seq": f"{DIST_LM_SEQ} tokens",
+                 "weights": "random, seeded"},
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+    return counts
 
 
 def run_autotune_serve(args, params):
@@ -3158,6 +3449,9 @@ def run_autotune_serve(args, params):
                  for label, (_, _, _, dsm) in firsts.items()}
     say(phase="autotune_serve", model=cfg.name, start_code=list(AT_SERVE_CODE),
         seq_len=SERVE_SEQ, batches=len(results),
+        reduced={"batches": f"{AT_SERVE_BATCHES}, cut from 10 for the "
+                            f"script's time (phase dist); the code "
+                            f"changed at batch 6"},
         policy={"rate_rps": 0.01, "interval": 3, "window": 6,
                 "min_samples": 3, "schedules": ["gather"], "wait_draws": 200,
                 "n_requests": 800},
@@ -4146,10 +4440,11 @@ def run_train_lm_path(args):
     """Coded training of qwen3-1.7b at full width on 4096-token sequences.
 
     Synchronous: ``Trainer`` with NAG over all 28 layers, code (4, 3, 1, 2),
-    random stragglers, one sequence a subset, 3 steps, counted from 0; then,
-    outside the window, the decoded gradient with a straggler against the
-    uncoded one.  Pipelined: ``SchemeSpec(pipelined=True, fuse_apply=True)``
-    with SGD-momentum, also over 28 layers, 3 steps and a drain, counted
+    random stragglers, one sequence a subset, LM_STEPS steps, counted from 0;
+    then, outside the window, the decoded gradient with a straggler against
+    the uncoded one.  Pipelined: ``SchemeSpec(pipelined=True,
+    fuse_apply=True)`` with SGD-momentum, also over 28 layers, LM_STEPS
+    steps and a drain, counted
     from 0; then fill + drain against the synchronous step, bitwise.
     Weights are random from a seeded CUDA generator (the Trainer's)."""
     full = get_config("qwen3-1.7b")
@@ -4166,16 +4461,16 @@ def run_train_lm_path(args):
              sgd_momentum(LM_SGD_LR, 0.9),
              coding.SchemeSpec(pipelined=True, fuse_apply=True))):
         res[label] = _train_lm(args, label, full, code, opt, spec, batches,
-                               checkpoint=spec is None)
+                               checkpoint=spec is None, reduced=LM_STEPS_CUT)
     return res
 
 
 def run_train_moe(args):
     """Coded training of olmoe-1b-7b at full width, 4 of its 16 layers, on
     4096-token sequences: ``Trainer`` with NAG, code (4, 3, 1, 2), random
-    stragglers, one sequence a subset, 3 steps counted from 0; outside the
-    window the decoded gradient with a straggler against the uncoded one,
-    and one subset's gradient twice, bitwise."""
+    stragglers, one sequence a subset, LM_STEPS steps counted from 0;
+    outside the window the decoded gradient with a straggler against the
+    uncoded one, and one subset's gradient twice, bitwise."""
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
     code = make_code(*LM_CODE)
     label = f"{MOE_ARCH} Trainer.step"
@@ -4183,16 +4478,17 @@ def run_train_moe(args):
         args, label, cfg, code, nag(LM_NAG_LR), None, _lm_batches(cfg, code),
         phase="train_moe",
         reduced={"n_layers": f"{MOE_TRAIN_LAYERS} of 16 (the f32 trainer "
-                             f"at full depth needs about 6.7 x 27.7 GB)"})}
+                             f"at full depth needs about 6.7 x 27.7 GB)",
+                 **LM_STEPS_CUT})}
 
 
 def run_train_vlm(args):
     """Coded training of internvl2-26b at full width, 2 of its 48 layers,
     on sequences of 256 patch embeddings and 4096 tokens: ``Trainer`` with
-    NAG, code (4, 3, 1, 2), random stragglers, one sequence a subset, 3
-    steps counted from 0; outside the window the decoded gradient with a
-    straggler against the uncoded one, and one subset's gradient twice,
-    bitwise."""
+    NAG, code (4, 3, 1, 2), random stragglers, one sequence a subset,
+    LM_STEPS steps counted from 0; outside the window the decoded gradient
+    with a straggler against the uncoded one, and one subset's gradient
+    twice, bitwise."""
     cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS)
     code = make_code(*LM_CODE)
     label = f"{VLM_ARCH} Trainer.step"
@@ -4201,14 +4497,16 @@ def run_train_vlm(args):
         phase="train_vlm",
         reduced={"n_layers": f"{VLM_TRAIN_LAYERS} of 48 (the f32 trainer "
                              f"needs about 6.7 x its weights: 7.67 GB at 2 "
-                             f"layers, 79.4 GB at 48)"})}
+                             f"layers, 79.4 GB at 48)",
+                 **LM_STEPS_CUT})}
 
 
 def run_train_ssm(args):
     """Coded training of xlstm-350m at full width and SSM_TRAIN_LAYERS of
     its 24 layers on sequences of SSM_TRAIN_SEQ tokens: ``Trainer`` with NAG,
-    code (4, 3, 1, 2), random stragglers, one sequence a subset, 2 steps
-    counted from 0 (every leaf coded: a 2D encode for ``ln_f``, 3D for the
+    code (4, 3, 1, 2), random stragglers, one sequence a subset,
+    SSM_TRAIN_STEPS steps counted from 0 (every leaf coded: a 2D encode for
+    ``ln_f``, 3D for the
     24 others, the stacked vectors on the scalar path (R = 3 at 6
     layers), one decode a step; no
     flash launch); outside the window the
@@ -4234,8 +4532,9 @@ def run_train_hybrid(args):
     """Coded training of zamba2-1.2b at full width and full depth (38
     Mamba2 layers, 7 applications of the shared block) on sequences of
     HYBRID_TRAIN_SEQ tokens: ``Trainer`` with NAG, code (4, 3, 1, 2),
-    random stragglers, one sequence a subset, 2 steps counted from 0: per
-    step 36 2D encodes (``ln_f``, ``shared_attn/ln1``, ``ln2``), 216 3D
+    random stragglers, one sequence a subset, HYBRID_TRAIN_STEPS steps
+    counted from 0: per step 36 2D encodes (``ln_f``, ``shared_attn/ln1``,
+    ``ln2``), 216 3D
     (72 of them on the scalar path: the six stacked vectors, R = 38), 1
     decode, 168 flash forwards (a checkpointed application runs its
     forward twice) and 84 backwards; step 0's decoded gradient (a
@@ -4589,9 +4888,12 @@ def main():
     counts = run_main_path(args)
     counts["logistic-paper autotuned Trainer.step"] = run_autotune_train(args)
     counts.update(run_elastic(args))
-    counts.update(run_launch(coded_fraction=1.0))   # run_main_path's, held to 1.0
+    launched, launch_report = run_launch(coded_fraction=1.0)   # held to 1.0
+    counts.update(launched)
     serve_path = "qwen3-1.7b CodedServer.step"
-    counts[serve_path], n_batches, params = run_serve_path(args)
+    counts[serve_path], n_batches, params = run_serve_path(
+        args, reduced={"batches": f"{SERVE_BATCHES}, cut from 3 for the "
+                                  f"script's time (phase dist)"})
     counts["qwen3-1.7b autotuned CodedServer.step"] = \
         run_autotune_serve(args, params)
     gen_path = "qwen3-1.7b BatchedEngine.generate"
@@ -4669,6 +4971,11 @@ def main():
     counts.update(run_train_encdec(args))
     counts.update(run_long_encdec(args))
     say(phase="encdec_phases", seconds=time.perf_counter() - t_encdec)
+    # last: once other processes have used the card, a torch.profiler
+    # session of this process that traces the device alone loses kernel
+    # events (all of them after this phase's ranks), and the phases above
+    # read their idle shares that way
+    counts.update(run_dist(launch_report))
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined

@@ -152,11 +152,15 @@ class Codec:
         return [pack_bucket(flat_leaves, b, self.wire_dtype)
                 for b in pplan.buckets]
 
-    def wire_rows(self, pplan: PackPlan) -> list[torch.Tensor]:
-        """One zero ``(n, size)`` buffer in the wire dtype per bucket: every
-        worker's wire, a row each, filled from ``pack`` (or, f32, by the
-        fused encode in place).  Gaps and tails stay exactly zero."""
-        return [torch.zeros((self.code.n, b.size), dtype=self.wire_dtype,
+    def wire_rows(self, pplan: PackPlan,
+                  rows: int | None = None) -> list[torch.Tensor]:
+        """One zero ``(rows, size)`` buffer in the wire dtype per bucket:
+        the wire of each worker this process computes (``rows``, default
+        all ``n``; ``len(comm.workers)`` under a multi-process group), a row
+        each, filled from ``pack`` (or, f32, by the fused encode in place).
+        Gaps and tails stay exactly zero."""
+        rows = self.code.n if rows is None else rows
+        return [torch.zeros((rows, b.size), dtype=self.wire_dtype,
                             device=self.device) for b in pplan.buckets]
 
     def unpack(self, decoded_bufs, pplan: PackPlan) -> dict[int, torch.Tensor]:

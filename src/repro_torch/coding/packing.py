@@ -198,15 +198,16 @@ def psum_fallback(flat_leaves: Sequence[torch.Tensor], flat_plans,
     """Aggregate the non-coded leaves through ONE concatenated all-reduce
     (instead of one per leaf) and slice the sums back out.
 
-    ``flat_leaves[i]`` carries the leading worker axis: ``(n, *leaf shape)``.
-    Returns {leaf_index: summed leaf}; empty when every leaf is coded."""
+    ``flat_leaves[i]`` carries the leading axis of this process's workers:
+    ``(len(comm.workers), *leaf shape)``.  Returns {leaf_index: summed
+    leaf}; empty when every leaf is coded."""
     small_ix = [i for i, pl in enumerate(flat_plans)
                 if pl is None or not pl.coded]
     if not small_ix:
         return {}
-    n = comm.n
-    sbuf = (torch.cat([flat_leaves[i].reshape(n, -1) for i in small_ix], dim=1)
-            if len(small_ix) > 1 else flat_leaves[small_ix[0]].reshape(n, -1))
+    w = len(comm.workers)
+    sbuf = (torch.cat([flat_leaves[i].reshape(w, -1) for i in small_ix], dim=1)
+            if len(small_ix) > 1 else flat_leaves[small_ix[0]].reshape(w, -1))
     ssum = comm.psum(sbuf)
     out: dict[int, torch.Tensor] = {}
     off = 0

@@ -10,11 +10,12 @@
 
 Each schedule's decode contraction is delegated to a ``CodecBackend`` so the
 same choreography runs on the plain versions or the CUDA kernels.  Inputs
-carry the leading worker axis of ``repro_torch.comm``.  In SPMD every worker
-ends with the same decoded gradient; the single-process group computes it
-**once**: the gather schedule contracts the one gathered stack a single
-time, the a2a schedule runs each worker's 1/n slice (n launches) and
-concatenates them.
+carry the leading axis of the process's workers (``repro_torch.comm``).  In
+SPMD every worker ends with the same decoded gradient; a process computes
+it **once**: the gather schedule contracts the one gathered stack a single
+time, the a2a schedule decodes the 1/n slice of each of its workers (n
+launches in the single-process group, n/P on each of P ranks) and gathers
+them.
 """
 from __future__ import annotations
 
@@ -136,12 +137,13 @@ class AllToAllSchedule(Schedule):
         return (n - 1) * l / (m * n) + (n - 1) * l / n
 
     def _exchange_decode(self, x, W, comm, backend):
-        """(n, v, *rest) per-worker buffers -> (v, m, *rest) f32: exchange
-        chunks, decode worker p's (n, v/n, *rest) slice for each p, gather
-        the decoded slices at the wire dtype."""
-        ex = comm.all_to_all(x)                           # (n, n, c, *rest)
+        """(w, v, *rest) buffers of the process's w workers -> (v, m, *rest)
+        f32: exchange chunks, decode worker p's (n, v/n, *rest) slice for
+        each of its workers p, gather the decoded slices at the wire
+        dtype."""
+        ex = comm.all_to_all(x)                           # (w, n, c, *rest)
         dec = torch.stack([_decode_stack(ex[p], W, backend)
-                           for p in range(comm.n)])       # (n, c, m, *rest)
+                           for p in range(ex.shape[0])])  # (w, c, m, *rest)
         full = comm.all_gather(dec.to(x.dtype)).to(torch.float32)
         return full.reshape(x.shape[1], *dec.shape[2:])   # (v, m, *rest)
 

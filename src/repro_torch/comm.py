@@ -1,54 +1,91 @@
 """The worker group: how ``n`` data-parallel workers exchange tensors.
 
 The reference runs the workers as a ``shard_map`` over a device mesh
-(``repro.launch.mesh.make_local_mesh(n, 1)``).  One GPU holds one process,
-so the port's default group is a single process on one device: a per-worker
-tensor carries a leading worker axis of size ``n``, and the collectives are
-views of that axis — ``all_gather`` is the stack itself, ``all_to_all`` a
-chunk transpose, ``psum`` a sum over axis 0.  In SPMD every worker would
-receive the same gathered or summed value; here it exists once.
+(``repro.launch.mesh.make_local_mesh(n, 1)``).  The port has two groups
+behind one interface:
+
+- ``LocalComm`` (the default): all ``n`` workers in one process on one
+  device.  A per-worker tensor carries a leading worker axis of size ``n``,
+  and the collectives are views of that axis — ``all_gather`` is the stack
+  itself, ``all_to_all`` a chunk transpose, ``psum`` a sum over axis 0.  In
+  SPMD every worker would receive the same gathered or summed value; here it
+  exists once.
+- ``DistComm``: the workers split in contiguous blocks over the ranks of a
+  ``torch.distributed`` group (``make_dist_comm``), the counterpart of the
+  reference's mesh execution.  Rank ``r`` computes only its own workers
+  (``Comm.workers``); its per-worker tensors carry those rows only, and the
+  collectives are real ones between processes.  Every result is bitwise
+  the one ``LocalComm`` gives on the same inputs: a gather is a copy, an
+  all-to-all a permutation, and ``psum`` gathers the stack and sums it in
+  ``LocalComm``'s own order (``all_reduce`` would sum in the backend's).
 
 Every collective counts its calls (``Comm.counts``), which is how the tests
-pin "O(1) collectives per wire bucket".  A ``torch.distributed`` group fits
-behind the same three methods; the model axis has size 1.
+pin "O(1) collectives per wire bucket", and the bytes of its result that
+one worker receives (``Comm.bytes``), the measure the reference's
+``hlo_cost`` gives a collective.  The model axis has size 1.
 """
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 
 from ._device import resolve_device
 
+_KINDS = ("all_gather", "all_to_all", "psum")
+
 
 class Comm:
-    """Interface of a worker group of ``n`` workers on ``device``."""
+    """Interface of a worker group of ``n`` workers on ``device``, of which
+    this process computes ``workers`` (global indices, a contiguous
+    ``range``)."""
 
-    def __init__(self, n: int, device: torch.device):
+    def __init__(self, n: int, device: torch.device,
+                 workers: range | None = None):
         self.n = int(n)
         self.device = device
-        self.counts = {"all_gather": 0, "all_to_all": 0, "psum": 0}
+        self.workers = range(self.n) if workers is None else workers
+        self.counts = dict.fromkeys(_KINDS, 0)
+        self.bytes = dict.fromkeys(_KINDS, 0)
 
     def reset_counts(self) -> None:
-        """Set every collective's call count to 0."""
-        for k in self.counts:
-            self.counts[k] = 0
+        """Set every collective's call count and byte count to 0."""
+        for d in (self.counts, self.bytes):
+            for k in d:
+                d[k] = 0
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's rows (a view) of an ``(n, ...)`` tensor indexed by
+        the global worker, such as the responder mask."""
+        return x[self.workers.start:self.workers.stop]
 
     def _check(self, x: torch.Tensor) -> None:
-        if x.shape[0] != self.n:
+        if x.shape[0] != len(self.workers):
             raise ValueError(f"per-worker tensor needs leading axis "
-                             f"n={self.n}, got shape {tuple(x.shape)}")
+                             f"{len(self.workers)} (this process's workers "
+                             f"of n={self.n}), got shape {tuple(x.shape)}")
+
+    def _count(self, kind: str, result_per_worker: torch.Tensor) -> None:
+        self.counts[kind] += 1
+        self.bytes[kind] += (result_per_worker.numel()
+                             * result_per_worker.element_size())
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """(n, *s) per-worker values -> the (n, *s) stack every worker gets."""
+        """(w, *s) values of this process's w workers -> the (n, *s) stack
+        every worker gets, row ``i`` from worker ``i``."""
         raise NotImplementedError
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
-        """(n, L, *s) per-worker buffers, ``n | L`` -> (n, n, L/n, *s):
-        entry ``[p, q]`` is chunk ``p`` of worker ``q``'s buffer, i.e. row
-        ``p`` is what worker ``p`` holds after the exchange."""
+        """(w, L, *s) buffers of this process's w workers, ``n | L`` ->
+        (w, n, L/n, *s): entry ``[p, q]`` is chunk ``workers[p]`` of worker
+        ``q``'s buffer, i.e. row ``p`` is what worker ``workers[p]`` holds
+        after the exchange."""
         raise NotImplementedError
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
-        """(n, *s) per-worker values -> their (*s) sum over the workers."""
+        """(w, *s) values of this process's w workers -> the (*s) sum over
+        all ``n`` workers."""
         raise NotImplementedError
 
 
@@ -57,22 +94,25 @@ class LocalComm(Comm):
 
     def all_gather(self, x):
         self._check(x)
-        self.counts["all_gather"] += 1
-        return x.contiguous()
+        out = x.contiguous()
+        self._count("all_gather", out)
+        return out
 
     def all_to_all(self, x):
         self._check(x)
         n, L = self.n, x.shape[1]
         if L % n:
             raise ValueError(f"all_to_all needs n | length, got {L} % {n}")
-        self.counts["all_to_all"] += 1
-        return (x.reshape(n, n, L // n, *x.shape[2:])
-                .transpose(0, 1).contiguous())
+        out = (x.reshape(n, n, L // n, *x.shape[2:])
+               .transpose(0, 1).contiguous())
+        self._count("all_to_all", out[0])
+        return out
 
     def psum(self, x):
         self._check(x)
-        self.counts["psum"] += 1
-        return x.sum(dim=0)
+        out = x.sum(dim=0)
+        self._count("psum", out)
+        return out
 
 
 def make_local_comm(n: int, device: str | torch.device = "cuda") -> LocalComm:
@@ -80,3 +120,130 @@ def make_local_comm(n: int, device: str | torch.device = "cuda") -> LocalComm:
     reference's ``make_local_mesh(n, 1)``).  ``device`` defaults to the card
     and raises when there is none; pass ``"cpu"`` for the host."""
     return LocalComm(n, resolve_device(device))
+
+
+class DistComm(Comm):
+    """The ``n`` workers split over the ranks of the initialised default
+    ``torch.distributed`` group: rank ``r`` of ``P`` computes workers
+    ``[r n/P, (r + 1) n/P)`` (``P`` must divide ``n``).
+
+    The tensors go to the backend as they are, on ``device``: ``gloo`` takes
+    CUDA tensors for these collectives and moves them through the host
+    itself, ``nccl`` keeps them on the card."""
+
+    def __init__(self, n: int, device: torch.device):
+        P, r = dist.get_world_size(), dist.get_rank()
+        _check_split(n, P)
+        w = n // P
+        super().__init__(n, device, workers=range(r * w, (r + 1) * w))
+        self.rank, self.world_size = r, P
+        self.backend = str(dist.get_backend())
+
+    @property
+    def transport(self) -> str:
+        """The backend, and where the tensors travel from."""
+        return f"{self.backend}, {self.device.type} tensors handed over as is"
+
+    def _gathered(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.empty((self.n, *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous())
+        return out
+
+    def all_gather(self, x):
+        self._check(x)
+        out = self._gathered(x)
+        self._count("all_gather", out)
+        return out
+
+    def all_to_all(self, x):
+        self._check(x)
+        n, w, P, L = self.n, len(self.workers), self.world_size, x.shape[1]
+        if L % n:
+            raise ValueError(f"all_to_all needs n | length, got {L} % {n}")
+        rest = tuple(x.shape[2:])
+        # send[R, a, b] = chunk R w + a of local worker b: block R goes to
+        # rank R, and arrives there as recv[S, a, b] = that chunk of worker
+        # S w + b
+        send = (x.reshape(w, P, w, L // n, *rest).transpose(0, 1)
+                .transpose(1, 2).contiguous())
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send)
+        out = recv.transpose(0, 1).reshape(w, n, L // n, *rest)
+        self._count("all_to_all", out[0])
+        return out
+
+    def psum(self, x):
+        self._check(x)
+        # LocalComm's operation on the same (n, *s) stack: the same bits
+        out = self._gathered(x).sum(dim=0)
+        self._count("psum", out)
+        return out
+
+
+def refuse_dist(comm: Comm | None, what: str, why: str) -> None:
+    """Raise ``NotImplementedError`` when ``comm`` is a ``DistComm``:
+    ``what`` is not carried across ranks yet, for the reason ``why``
+    (ROADMAP A.8.5 queues it)."""
+    if isinstance(comm, DistComm):
+        raise NotImplementedError(f"{what} under a DistComm: {why} "
+                                  f"(ROADMAP A.8.5)")
+
+
+def _check_split(n: int, world_size: int) -> None:
+    if world_size < 1 or n % world_size:
+        raise ValueError(f"DistComm needs the world size to divide the "
+                         f"worker count: {world_size} ranks do not divide "
+                         f"n={n} workers")
+
+
+def check_group(n: int | None, world_size: int, backend: str,
+                device: torch.device) -> None:
+    """Refuse a group this port cannot run, before any process group is
+    made: a world size that does not divide ``n``, ``nccl`` off the card,
+    and ``nccl`` with more ranks than cards (NCCL refuses two ranks on one
+    device; ``gloo`` takes them)."""
+    if n is not None:
+        _check_split(n, world_size)
+    if backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError("backend 'nccl' needs a cuda device; use "
+                             "'gloo' on the cpu")
+        cards = torch.cuda.device_count()
+        if world_size > cards:
+            raise ValueError(
+                f"backend 'nccl' cannot put {world_size} ranks on {cards} "
+                f"card(s): NCCL refuses two ranks on one device; use "
+                f"backend 'gloo', which takes them")
+
+
+def make_dist_comm(n: int, *, device: str | torch.device = "cuda",
+                   backend: str | None = None, init_method: str | None = None,
+                   rank: int | None = None,
+                   world_size: int | None = None) -> DistComm:
+    """This process's share of ``n`` workers over ``torch.distributed``.
+
+    ``device`` defaults to the card and raises when there is none; pass
+    ``"cpu"`` for the host.  ``backend`` defaults to ``"nccl"`` on a cuda
+    device and ``"gloo"`` on the cpu.  When no default process group exists
+    yet, one is made from ``init_method``, ``rank`` and ``world_size``
+    (default: the ``RANK`` / ``WORLD_SIZE`` environment, as ``env://``
+    reads it), after ``check_group`` has refused what cannot run; otherwise
+    the existing group is taken (``repro_torch.launch.ranks`` makes one per
+    rank)."""
+    dev = resolve_device(device)
+    if dist.is_initialized():
+        have = str(dist.get_backend())
+        if backend is not None and backend != have:
+            raise ValueError(f"the process group runs {have!r}, not "
+                             f"{backend!r}")
+        check_group(n, dist.get_world_size(), have, dev)
+    else:
+        backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+        ws = int(world_size if world_size is not None
+                 else os.environ.get("WORLD_SIZE", 1))
+        r = int(rank if rank is not None else os.environ.get("RANK", 0))
+        check_group(n, ws, backend, dev)
+        dist.init_process_group(backend, init_method=init_method, rank=r,
+                                world_size=ws)
+    return DistComm(n, dev)

@@ -44,7 +44,7 @@ import functools
 from typing import Any, Callable
 
 from .._device import resolve_device
-from ..comm import Comm, make_local_comm
+from ..comm import Comm, make_local_comm, refuse_dist
 from ..core import make_code
 from ..core.hetero import HeteroCode, plan_hetero
 from ..train import Trainer
@@ -113,6 +113,10 @@ class ElasticTrainer(Trainer):
                              else functools.partial(make_local_comm,
                                                     device=device))
         comm = trainer_kwargs.pop("comm", None) or self.comm_factory(code.n)
+        refuse_dist(comm, "ElasticTrainer",
+                    "a membership change re-plans and resizes on each rank's "
+                    "own view; the ladder's decisions must be made on rank 0 "
+                    "and broadcast")
         super().__init__(cfg, code, optimizer, device=device, comm=comm,
                          **trainer_kwargs)
         pol = self.elastic

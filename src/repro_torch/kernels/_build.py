@@ -170,16 +170,22 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def build_once() -> pathlib.Path:
+    """The library's path, built first when its sources have no build yet;
+    nothing is loaded (so no CUDA context is made): a launcher calls it once
+    before it starts ranks that each ``load`` the library."""
+    lib_path = build_dir() / f"libkernels_{_source_hash()}.so"
+    return lib_path if lib_path.exists() else build()
+
+
 def load() -> ctypes.CDLL:
     """The loaded library, built first when its sources have no build yet."""
     global _lib, last_build
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
-    lib_path = build_dir() / f"libkernels_{_source_hash()}.so"
-    built = not lib_path.exists()
-    if built:
-        lib_path = build()
+    built = not (build_dir() / f"libkernels_{_source_hash()}.so").exists()
+    lib_path = build_once()
     lib = bind(ctypes.CDLL(str(lib_path)))
     _lib = lib
     last_build = {"seconds": time.perf_counter() - t0, "lib": str(lib_path),

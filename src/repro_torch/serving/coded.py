@@ -51,10 +51,14 @@ import torch.nn.functional as F
 
 from .. import coding
 from .._device import resolve_device
-from ..comm import Comm, make_local_comm
+from ..comm import Comm, make_local_comm, refuse_dist
 from ..core import GradCode
 from ..models import api as model_api
 from ..models import common as cm
+
+# why a DistComm is refused here (``comm.refuse_dist``)
+SERVE_ACROSS_RANKS = ("the forward walks every replica in one process; a "
+                      "rank computing only its own replicas is not written")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +123,7 @@ def make_coded_forward(cfg, code: GradCode, *,
             "fuse the optimizer update); the serving forward has neither — "
             "build the CodedServer from a spec without them")
     dev = resolve_device(device)
+    refuse_dist(comm, "coded serving", SERVE_ACROSS_RANKS)
     comm = comm or make_local_comm(code.n, dev)
     n = comm.n
     if code.n != n:

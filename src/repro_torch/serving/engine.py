@@ -29,7 +29,7 @@ import torch
 
 from .. import coding
 from .._device import resolve_device
-from ..comm import Comm
+from ..comm import Comm, refuse_dist
 from ..core import make_code
 from ..data import CodedBatcher
 from ..models import api as model_api
@@ -38,7 +38,8 @@ from ..tune.arrivals import ServingAutotuner
 from ..tune.stragglers import as_straggler_source
 from ..tune.telemetry import record_from_times
 from .batcher import Request, RequestBatcher
-from .coded import ForwardArtifacts, failed_request_rows, make_coded_forward
+from .coded import (SERVE_ACROSS_RANKS, ForwardArtifacts,
+                    failed_request_rows, make_coded_forward)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +226,7 @@ class CodedServer:
         first served batch."""
         self.cfg = cfg
         self.device = resolve_device(device)
+        refuse_dist(comm, "CodedServer", SERVE_ACROSS_RANKS)
         self.params = params
         self.spec = spec if spec is not None else coding.SchemeSpec()
         self.slo = slo if slo is not None else ServeSLO()

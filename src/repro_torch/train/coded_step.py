@@ -2,9 +2,10 @@
 train step usable with any parameter dict and any loss function.
 
 Layout: the batch arrives in the redundant coded layout (n, d, b, ...) —
-dim 0 the worker, dim 1 the worker's d assigned subsets.  The ``n`` workers
-live in one process on one device (``repro_torch.comm``), so the step walks
-them in a Python loop where the reference runs a ``shard_map``:
+dim 0 the worker, dim 1 the worker's d assigned subsets.  The step walks
+the workers of its process (``comm.workers``: all ``n`` of them under the
+default single-process group, a rank's block under a ``DistComm``) in a
+Python loop where the reference runs a ``shard_map``:
 
   1. per worker, loop over its d subsets, computing each subset's gradient
      with ``torch.autograd.grad`` (activation memory = 1 subset; the compute
@@ -16,14 +17,20 @@ them in a Python loop where the reference runs a ``shard_map``:
   3. multiply by the responder mask (stragglers transmit nothing; proves
      the decode is independent of straggler payloads),
   4. pack the coded encodings into the static ``PackPlan``'s bucketed flat
-     wire buffers, each worker straight into its row of one ``(n, L)``
-     buffer per bucket (default; ``packed=False`` keeps the per-leaf escape
-     hatch) and decode the summed gradient with the host-computed float64
-     weights W (zero rows at stragglers) via the gather or a2a schedule —
+     wire buffers, each worker straight into its row of one ``(w, L)``
+     buffer per bucket, ``w`` the process's workers (default;
+     ``packed=False`` keeps the per-leaf escape hatch) and decode the
+     summed gradient with the host-computed float64 weights W (zero rows
+     at stragglers) via the gather or a2a schedule —
      one collective choreography + one contraction per bucket.  Every
      reference worker decodes the same gathered stack; the single-process
-     group decodes it once per bucket,
-  5. run the optimizer update.
+     group decodes it once per bucket, and so does every rank of a
+     ``DistComm``,
+  5. run the optimizer update (on every rank alike: the parameters stay
+     replicated, as in the reference's SPMD).
+
+``batch``, ``C``, ``rho`` and ``mask`` keep the global worker index; the
+rows of a wire or side buffer are this process's workers, in order.
 
 All coding phases are delegated to a ``repro_torch.coding.Codec``:
 ``schedule`` picks the choreography (gather / a2a / psum), ``backend`` the
@@ -137,7 +144,8 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
 
     device: where the step runs; defaults to the card and raises when there
     is none.  comm: the worker group (default: the single-process group of
-    ``code.n`` workers on ``device``).
+    ``code.n`` workers on ``device``; a ``DistComm`` splits them over
+    ranks, each of which computes its own workers' subsets).
 
     spec.pipelined: also build the async three-phase step
     (``StepArtifacts.pipeline``); the synchronous step is built as well and
@@ -155,6 +163,7 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
     dev = resolve_device(device)
     comm = comm or make_local_comm(code.n, dev)
     n = comm.n
+    workers = comm.workers
     if code.n != n:
         raise ValueError(f"code.n={code.n} != data-parallel degree {n}")
     if loss_fn is None:
@@ -214,7 +223,8 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
     def _finish(grads, loss_rows, mask, gss_rows, ef, coded):
         grads, gnorm = _scaled_with_norm(grads)
         # responders' view, normalised by the subset count (= n uniformly)
-        loss_global = comm.psum(torch.stack(loss_rows) * mask) / k_subsets
+        loss_global = (comm.psum(torch.stack(loss_rows) * comm.rows(mask))
+                       / k_subsets)
         metrics = {"loss": loss_global, "grad_norm": gnorm}
         if partial and coded:
             metrics["decode_err_bound"] = ef * torch.sqrt(
@@ -229,10 +239,11 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         worker_enc, loss_rows, gss_rows = [], [], []
         # packed: each worker's coded encodings are packed into its row of
-        # the (n, L) bucket buffers and dropped, so no more than one
+        # the (w, L) bucket buffers and dropped, so no more than one
         # worker's encodings and one copy of the wire are alive at once
-        bufs = codec.wire_rows(pplan) if pplan is not None else None
-        for i in range(n):
+        bufs = (codec.wire_rows(pplan, len(workers)) if pplan is not None
+                else None)
+        for row, i in enumerate(workers):
             enc = [codec.encoding_zero(params[k], pl)
                    for k, pl in zip(names, flat_plans)]
             loss_acc, gss_acc = _zero(), _zero()
@@ -257,8 +268,8 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
             if bufs is not None:
                 wire = [codec.to_wire(e, mask[i]) if pl.coded else None
                         for e, pl in zip(enc, flat_plans)]
-                for buf, row in zip(bufs, codec.pack(wire, pplan)):
-                    buf[i] = row
+                for buf, packed in zip(bufs, codec.pack(wire, pplan)):
+                    buf[row] = packed
                 del wire
                 worker_enc.append([None if pl.coded else e
                                    for e, pl in zip(enc, flat_plans)])
@@ -300,7 +311,7 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
     def aggregate_psum(params, batch, W, mask, rho, err_factor=None):
         p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         worker_acc, loss_rows = [], []
-        for i in range(n):
+        for i in workers:
             acc = [torch.zeros(tuple(params[k].shape), dtype=f32, device=dev)
                    for k in names]
             loss_acc = _zero()
@@ -327,11 +338,12 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
     def _make_pipeline() -> PipelineFns:
         """The fill / steady / drain callables of the pipelined step.
 
-        Wire state: one (n, L_b) buffer per bucket in the wire dtype, then
-        the (n, S) f32 side buffer: each worker's psum-fallback leaves
-        (flattened, in leaf order) and, last, its masked loss.  Every phase
-        repeats the synchronous step's operations on the same values in the
-        same order, so fill + drain is the synchronous step bit for bit.
+        Wire state: one (w, L_b) buffer per bucket in the wire dtype, then
+        the (w, S) f32 side buffer, a row for each of this process's ``w``
+        workers: its psum-fallback leaves (flattened, in leaf order) and,
+        last, its masked loss.  Every phase repeats the synchronous step's
+        operations on the same values in the same order, so fill + drain
+        is the synchronous step bit for bit.
         """
         slot_items = [(bi, s) for bi, b in enumerate(pplan.buckets)
                       for s in b.slots]
@@ -349,13 +361,13 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
             p = {k: v.detach().requires_grad_(True)
                  for k, v in params.items()}
             small_rows, loss_rows = [], []
-            # each worker's wire is its row of one (n, L) buffer per bucket:
+            # each worker's wire is its row of one (w, L) buffer per bucket:
             # an f32 wire is folded into in place, another type is folded
             # into an f32 accumulator and cast into the row
-            wires = codec.wire_rows(pplan)
+            wires = codec.wire_rows(pplan, len(workers))
             in_place = codec.wire_dtype == f32
-            for i in range(n):
-                accs = ([w[i] for w in wires] if in_place
+            for row, i in enumerate(workers):
+                accs = ([w[row] for w in wires] if in_place
                         else codec.bucket_acc_zeros(pplan))
                 smalls = [torch.zeros(sh, dtype=f32, device=dev)
                           for sh in small_shapes]
@@ -376,13 +388,13 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
                     if in_place:
                         a.mul_(mask[i])
                     else:
-                        w[i] = codec.to_wire(a, mask[i])
+                        w[row] = codec.to_wire(a, mask[i])
                 del accs
                 small_rows.append(smalls)
                 loss_rows.append(loss_acc)
-            cols = [torch.stack([r[q] for r in small_rows]).reshape(n, -1)
-                    for q in range(len(small_ix))]
-            loss_col = (torch.stack(loss_rows) * mask)[:, None]
+            cols = [torch.stack([r[q] for r in small_rows])
+                    .reshape(len(workers), -1) for q in range(len(small_ix))]
+            loss_col = (torch.stack(loss_rows) * comm.rows(mask))[:, None]
             side = torch.cat(cols + [loss_col], dim=1)
             return (*wires, side)
 

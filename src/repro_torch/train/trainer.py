@@ -33,8 +33,15 @@ The first step under a signature not seen before stands in for the
 reference's freshly compiled executable: its wall calibrates the recompile
 charge (``compile_s``), not the step cost.
 
+Across ranks (``comm=`` a ``repro_torch.comm.DistComm``): every rank builds
+the same trainer from the same seeds (the code, the float64 solve for
+``W``, the straggler draws and the batch are host-side and alike), computes
+its own workers' subsets and applies the same update, so the parameters
+stay replicated.
+
 Refused with ``NotImplementedError``: the reference's deprecated per-lever
-and straggler keyword arguments (use ``spec=`` and ``straggler_source=``).
+and straggler keyword arguments (use ``spec=`` and ``straggler_source=``);
+under a ``DistComm``, ``autotune=`` and ``checkpoint_dir=`` (ROADMAP A.8.5).
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ import torch
 from .._device import resolve_device
 from ..coding import SchemeSpec, make_step_inputs
 from ..checkpoint import CheckpointManager
-from ..comm import Comm
+from ..comm import Comm, refuse_dist
 from ..convert import flatten, unflatten
 from ..core import (BlockCompositeCode, ExpanderCode,
                     FractionalRepetitionCode, GradCode, HeteroCode, HeteroPlan,
@@ -95,6 +102,17 @@ class Trainer:
                 raise TypeError(f"Trainer got an unexpected keyword "
                                 f"argument {k!r}")
             raise NotImplementedError(f"Trainer({k}=...): {_LATER[k]}")
+        if autotune is not None:
+            refuse_dist(comm, "Trainer(autotune=...)",
+                        "a timed tuner decides on each rank's own clock, so "
+                        "the ranks would diverge and then block in a "
+                        "collective; the decision must be made on rank 0 "
+                        "and broadcast")
+        if checkpoint_dir:
+            refuse_dist(comm, "Trainer(checkpoint_dir=...)",
+                        "every rank would write the same snapshot; saving "
+                        "on rank 0 and restoring on every rank is not "
+                        "written")
         self.cfg = cfg
         self.code = code
         self.optimizer = optimizer

@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax_or_the_reference():
             "repro_torch.tune.arrivals", "repro_torch.elastic",
             "repro_torch.elastic.events", "repro_torch.elastic.tracker",
             "repro_torch.elastic.trainer", "repro_torch.launch",
-            "repro_torch.launch.train", "repro_torch.models.moe",
+            "repro_torch.launch.train", "repro_torch.launch.ranks",
+            "repro_torch.models.moe",
             "repro_torch.configs.olmoe_1b_7b",
             "repro_torch.configs.grok_1_314b", "repro_torch.models.vlm",
             "repro_torch.configs.internvl2_26b", "repro_torch.models.xlstm",
@@ -173,6 +174,7 @@ def _entry_points():
     from repro_torch.coding.schedules import get_schedule
     from repro_torch.coding.backends import TorchRefBackend
     from repro_torch.elastic import ElasticTrainer
+    from repro_torch.launch import ranks as launch_ranks
     from repro_torch.launch import train as launch_train
     cfg, code = get_config("logistic-paper"), make_code(4, 3, 1, 2)
     lm = get_config("qwen3-1.7b").reduced()
@@ -191,6 +193,9 @@ def _entry_points():
         "make_codec": lambda: coding.make_codec(code),
         "SchemeSpec.make_codec": lambda: coding.SchemeSpec().make_codec(code),
         "make_local_comm": lambda: comm.make_local_comm(4),
+        "make_dist_comm": lambda: comm.make_dist_comm(4),
+        "launch.ranks.run_ranks":
+            lambda: launch_ranks.run_ranks(launch_train.job_rank, 2),
         "models.api.init": lambda: api.init(cfg),
         "models.api.init(dense)": lambda: api.init(lm),
         "models.api.init(moe)":
@@ -213,6 +218,8 @@ def _entry_points():
         "models.api.init_cache": lambda: api.init_cache(lm, 2, 8),
         "ElasticTrainer": lambda: ElasticTrainer(cfg, code, nag(1e-3)),
         "launch.train.main": lambda: launch_train.main(["--steps", "1"]),
+        "launch.train.main(--nproc 2)": lambda: launch_train.main(
+            ["--steps", "1", "--nproc", "2", "--dist-backend", "gloo"]),
         "Codec": lambda: coding.Codec(code=code,
                                       schedule=get_schedule("gather"),
                                       backend=TorchRefBackend()),
@@ -223,7 +230,9 @@ def _entry_points():
                                   "CodedServer(autotune)",
                                   "make_coded_train_step",
                                   "make_codec", "SchemeSpec.make_codec",
-                                  "make_local_comm", "models.api.init",
+                                  "make_local_comm", "make_dist_comm",
+                                  "launch.ranks.run_ranks",
+                                  "models.api.init",
                                   "models.api.init(dense)",
                                   "models.api.init(moe)",
                                   "models.api.init(vlm)",
@@ -236,6 +245,7 @@ def _entry_points():
                                   "build_serve_artifacts",
                                   "models.api.init_cache",
                                   "ElasticTrainer", "launch.train.main",
+                                  "launch.train.main(--nproc 2)",
                                   "Codec"])
 def test_default_device_is_the_card_and_never_a_quiet_cpu(name):
     if torch.cuda.is_available():

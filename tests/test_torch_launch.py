@@ -48,9 +48,12 @@ def _flags(module):
 
 
 def test_flags_and_defaults_are_the_references():
-    port = _flags(tlaunch)
-    assert port[:-1] == _flags(jlaunch)
-    assert port[-1][0] == ("--device",)
+    """The reference's flags, in its order and with its defaults, then the
+    port's own: the device, and the rank group's and pipeline's flags."""
+    port, ref = _flags(tlaunch), _flags(jlaunch)
+    assert port[:len(ref)] == ref
+    assert [f[0] for f in port[len(ref):]] == [
+        ("--device",), ("--nproc",), ("--dist-backend",), ("--pipelined",)]
 
 
 def _by_hand(arch, reduced, n_data, d, s, m, schedule, steps, bps, seq, lr,
