@@ -326,7 +326,21 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            transport, the bytes by collective and step and rank, the host
            seconds inside the collectives (a device sync around each, timed
            by the group's ranks; the launcher's ranks run untimed), the
-           step walls against the single process's, and peak memory by rank
+           step walls against the single process's, and peak memory by
+           rank.  (c) on the same group, ``CodedServer`` on ``qwen3-1.7b``
+           at full width and depth, 4096-token prompts, code (4, 3, 1, 2),
+           a batch with no straggler and one with straggler 1: each rank's
+           outputs bitwise the single-process server's, 168 flash, 6 2D
+           encodes and 1 2D decode a rank a batch (336, 12, 1 in one
+           process), the collectives' counts and bytes the single
+           process's.  (d) on the same group, ``logistic-paper`` at full
+           width: the autotune_train phase's tuned trainer for 16 steps
+           (the same plans, events and state on both ranks, at least one
+           switch), then the checkpoint phase's trainer, 6 steps
+           uninterrupted and 4 with a snapshot every 2 (rank 0 alone
+           saves); a fresh group of 2 ranks resumes at step 4 and ends at
+           6 with the state of both uninterrupted runs and of the single
+           process, bitwise
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
@@ -2394,6 +2408,15 @@ def _drift(n, at, seed):
     return DriftingSampler([(0, pa), (at, pb)], seed=seed)
 
 
+def _at_policy():
+    """The trainer's tuning policy of autotune_train and dist (d): a
+    re-plan every 3 steps over exact and FRC plans."""
+    from repro_torch.tune import AutotunePolicy
+    return AutotunePolicy(interval=3, window=6, min_samples=3,
+                          schedules=("gather",), npts=4000,
+                          approx_options=("frc",), max_err=3.0)
+
+
 def _plan_label(plan):
     return (f"{plan.family}({plan.d},{plan.s},{plan.m})"
             + (",pipelined" if plan.pipelined else ""))
@@ -2481,16 +2504,13 @@ def run_autotune_train(args):
     expander plan.  Then the coding kernels are timed at every coded
     scheme's own shapes, on both kernel paths."""
     from repro_torch.core import plan_hetero
-    from repro_torch.tune import AutotunePolicy
     cfg = get_config("logistic-paper")
     n = AT_CODE[0]
     t_phase = time.perf_counter()
     rng = np.random.default_rng(SEED)
     batch = {k: torch.from_numpy(v).to(DEV) for k, v in
              make_synthetic_batch(rng, cfg, args.global_batch).items()}
-    policy = AutotunePolicy(interval=3, window=6, min_samples=3,
-                            schedules=("gather",), npts=4000,
-                            approx_options=("frc",), max_err=3.0)
+    policy = _at_policy()
     lr = 1e-6
 
     def trainer(backend, autotune=None, pipelined=False):
@@ -3097,6 +3117,12 @@ DIST_TIMEOUT = 300             # seconds a subprocess or group of the phase
 #                                may take
 DIST_PIPE_STEPS = 2            # steps of the pipelined logistic-paper run:
 #                                a fill and a steady step, then a drain
+# (c): coded serving of qwen3-1.7b at full width and depth on the group, a
+# batch a straggler pattern: the first with none, the second with one
+DIST_SERVE_STRAGGLERS = ((), (1,))
+DIST_TUNED_STEPS = AT_STEPS    # (d): steps of the autotuned trainer
+DIST_CKPT_CUT = 4              # (d): the first group's checkpointed run stops
+#                                here; a fresh group resumes to CKPT_STEPS
 COLLECTIVES = ("all_gather", "all_to_all", "psum")
 
 
@@ -3155,12 +3181,14 @@ def _time_collectives(comm):
     return steps
 
 
-def _dist_rank(rank, nproc, device, jobs):
+def _dist_rank(rank, nproc, device, jobs, ckpt_dir):
     """One rank of the dist phase's group (spawned by ``run_ranks``: it
     imports this script as a module first): each of ``jobs`` over a
     ``DistComm`` whose collectives ``_time_collectives`` times, with its
     kernel launches and peak memory counted from 0 and the replicas' state
-    digests compared after it.  Returns the jobs' reports."""
+    digests compared after it; then part (c), the coded server, and part
+    (d), the autotuned trainer and the first checkpointed runs into
+    ``ckpt_dir``.  Returns the jobs' reports and the parts'."""
     from repro_torch.comm import make_dist_comm
     from repro_torch.launch import train as launch_train
     reports = []
@@ -3170,14 +3198,145 @@ def _dist_rank(rank, nproc, device, jobs):
         comm = make_dist_comm(job.code[0], device=device)
         seconds = _time_collectives(comm)
         rep = launch_train.run_job(job, device, comm)
-        launch_train.check_replicas(rep["digest"], nproc)
+        comm.check_same("the replicas' state digest", rep["digest"])
         rep.update(rank=rank, transport=comm.transport,
                    collective_s=seconds[1:])
         reports.append(rep)
         del comm
         gc.collect()
         torch.cuda.empty_cache()
-    return reports
+    comm = make_dist_comm(SERVE_CODE[0], device=device)
+    seconds = _time_collectives(comm)
+    serve = _dist_serve(device, comm)
+    serve.update(rank=rank, collective_s=seconds[1:])
+    comm = make_dist_comm(AT_CODE[0], device=device)
+    tuned = _dist_tuned(device, comm)
+    ckpt = {"uninterrupted": _dist_ckpt(device, comm, CKPT_STEPS),
+            "cut": _dist_ckpt(device, comm, DIST_CKPT_CUT, ckpt_dir)}
+    return {"jobs": reports, "serve": serve, "tuned": tuned, "ckpt": ckpt,
+            "rank": rank}
+
+
+def _dist_resume_rank(rank, nproc, device, ckpt_dir):
+    """One rank of the fresh group of part (d): resume the cut run from
+    ``ckpt_dir`` to CKPT_STEPS, its launches counted from 0."""
+    from repro_torch.comm import make_dist_comm
+    comm = make_dist_comm(AT_CODE[0], device=device)
+    ops.reset_launch_counts()
+    out = _dist_ckpt(device, comm, CKPT_STEPS, ckpt_dir)
+    out.update(rank=rank, launches=ops.launch_counts())
+    return out
+
+
+def _dist_serve(device, comm=None):
+    """Part (c) in this process (``comm`` None: ``LocalComm``) or in a rank:
+    ``CodedServer`` on ``qwen3-1.7b`` at full width and depth (random
+    weights from SEED), code SERVE_CODE, one 4096-token prompt a subset, a
+    batch for each of DIST_SERVE_STRAGGLERS; launch counts set to 0 just
+    before the first batch and read after each.  Returns each batch's
+    outputs, walls, launches and collectives, and the peak memory."""
+    cfg = get_config("qwen3-1.7b")
+    code = make_code(*SERVE_CODE)
+    k = code.num_subsets
+    t0 = time.perf_counter()
+    params = model_api.init(cfg, device,
+                            torch.Generator(device=device).manual_seed(SEED))
+    requests = _requests(np.random.default_rng(SEED), cfg,
+                         len(DIST_SERVE_STRAGGLERS) * k)
+    srv = CodedServer(cfg, code, params, batch_per_subset=1,
+                      seq_len=SERVE_SEQ, device=device, comm=comm)
+    group = srv.artifacts.comm
+    if srv.artifacts.codec.backend.name != "hopper":
+        fail(f"dist: serve backend {srv.artifacts.codec.backend.name!r}, "
+             f"not the kernels")
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_launch_counts()
+    batches = []
+    for j, stragglers in enumerate(DIST_SERVE_STRAGGLERS):
+        group.reset_counts()
+        c0 = ops.launch_counts()
+        t0 = time.perf_counter()
+        res = srv.serve_batch({key: v[j * k:(j + 1) * k]
+                               for key, v in requests.items()},
+                              stragglers=stragglers)
+        step_s = time.perf_counter() - t0
+        batches.append({
+            "outputs": res.outputs, "stragglers": list(res.stragglers),
+            "failed_rows": list(res.failed_rows), "wall_s": res.wall_s,
+            "step_s": step_s,
+            "launches": _launch_delta(c0, ops.launch_counts()),
+            "counts": dict(group.counts), "bytes": dict(group.bytes)})
+    out = {"batches": batches, "launches": ops.launch_counts(),
+           "paths": ops.path_counts(), "init_s": init_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           "workers": [group.workers.start, group.workers.stop]}
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_tuned(device, comm):
+    """Part (d), in a rank: the autotune_train phase's trainer
+    (logistic-paper at full width from AT_CODE, its policy and drift, one
+    512-row batch drawn on the card from SEED) for DIST_TUNED_STEPS steps:
+    the plan after each step, the steps that switched, the state digest."""
+    from repro_torch.launch.train import state_digest
+    cfg = get_config("logistic-paper")
+    batch = _device_batch(torch.Generator(device=device).manual_seed(SEED),
+                          512, cfg.d_model)
+    policy = _at_policy()
+    tr = Trainer(cfg, make_code(*AT_CODE), optimizer=nag(1e-6),
+                 straggler_source=_drift(AT_CODE[0], 6, 3), autotune=policy,
+                 seed=0, device=device, comm=comm)
+    ops.reset_launch_counts()
+    plans, step_s = [], []
+    for _ in range(DIST_TUNED_STEPS):
+        m = tr.step(batch)
+        plans.append(_plan_label(tr._current_plan()))
+        step_s.append(m["step_time_s"])
+    return {"plans": plans, "events": repr(tr.autotune_events),
+            "switched_at": [e["step"] for e in tr.autotune_events
+                            if e["switched"]],
+            "digest": state_digest(tr.params, tr.opt_state),
+            "launches": ops.launch_counts(), "step_s": step_s}
+
+
+def _dist_ckpt(device, comm, steps, directory=None):
+    """Part (d): the checkpoint phase's trainer (logistic-paper at full
+    width, code AT_CODE, NAG, random stragglers, CKPT_BATCH-row batches
+    drawn on the card) run to ``steps`` over ``comm`` (``None``:
+    ``LocalComm``), with a snapshot every CKPT_EVERY steps into
+    ``directory`` when one is given, resumed from it when it holds one (the
+    data and the straggler streams replayed to the cursor).  Returns the
+    state digest, the step restored and the steps this process saved."""
+    from repro_torch.launch.train import state_digest
+    cfg = get_config("logistic-paper")
+    code = make_code(*AT_CODE)
+    source = RandomStragglers(seed=1)
+    tr = Trainer(cfg, code, optimizer=nag(1e-6), seed=0, device=device,
+                 straggler_source=source, checkpoint_dir=directory,
+                 checkpoint_every=CKPT_EVERY if directory else 0, comm=comm)
+    saved = []
+    if tr._ckpt is not None:
+        save = tr._ckpt.save
+        tr._ckpt.save = lambda step, *a: saved.append(step) or save(step, *a)
+    restored = tr._step_count
+    for i in range(restored):
+        source.draw(i, code)
+
+    def stream():
+        gen = torch.Generator(device=device).manual_seed(SEED + 7)
+        while True:
+            yield _device_batch(gen, CKPT_BATCH, cfg.d_model)
+
+    batches = tr.skip_to_cursor(stream())
+    losses = [tr.step(next(batches))["loss"] for _ in range(steps - restored)]
+    return {"digest": state_digest(tr.params, tr.opt_state),
+            "restored": restored, "steps": tr._step_count, "saved": saved,
+            "losses": losses}
 
 
 def _dist_compare(what, single, ranks, launches):
@@ -3262,8 +3421,13 @@ def run_dist(launch_report):
     of qwen3-1.7b at full width and DIST_LM_LAYERS layers, DIST_LM_SEQ
     tokens, code (4, 3, 1, 2), on the same group against ``LocalComm`` in
     this process: the 3D and 2D encodes halved, the decode whole, no flash
-    launch.  The group (``run_ranks`` with ``_dist_rank``) times its
-    collectives; the launcher's ranks run as a user runs them."""
+    launch.  (c) coded serving of full-width, full-depth qwen3-1.7b on the
+    same group against the single-process server (``_dist_serve``); (d)
+    the autotuned and the checkpointed logistic-paper trainers on the same
+    group, then a fresh group that resumes the checkpointed run
+    (``_dist_part_d``).  The group (``run_ranks`` with ``_dist_rank``)
+    times its collectives; the launcher's ranks run as a user runs
+    them."""
     from repro_torch.launch import ranks as launch_ranks
     from repro_torch.launch import train as launch_train
     t_phase = time.perf_counter()
@@ -3310,14 +3474,30 @@ def run_dist(launch_report):
         single_s.append(time.perf_counter() - t0)
         gc.collect()
         torch.cuda.empty_cache()
+    # (c) and (d): their single-process runs here, then the group
     t0 = time.perf_counter()
-    group = launch_ranks.run_ranks(_dist_rank, DIST_NPROC,
-                                   args=([pipe_job, lm_job],), device="cuda",
-                                   backend=DIST_BACKEND, timeout=DIST_TIMEOUT)
-    group_s = time.perf_counter() - t0
-    out = _dist_compare("pipelined", singles[0], [r[0] for r in group], half)
+    serve_single = _dist_serve(DEV)
+    serve_single["seconds"] = time.perf_counter() - t0
+    ckpt_single = _dist_ckpt(DEV, None, CKPT_STEPS)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        group = launch_ranks.run_ranks(
+            _dist_rank, DIST_NPROC, args=([pipe_job, lm_job], ckpt_dir),
+            device="cuda", backend=DIST_BACKEND, timeout=DIST_TIMEOUT)
+        group_s = time.perf_counter() - t0
+        first_files = sorted(os.listdir(ckpt_dir))
+        t0 = time.perf_counter()
+        resumed = launch_ranks.run_ranks(
+            _dist_resume_rank, DIST_NPROC, args=(ckpt_dir,), device="cuda",
+            backend=DIST_BACKEND, timeout=DIST_TIMEOUT)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    jobs = [r["jobs"] for r in group]
+    out = _dist_compare("pipelined", singles[0], [r[0] for r in jobs], half)
     _dist_check_launches(
-        "pipelined", [r[0] for r in group],
+        "pipelined", [r[0] for r in jobs],
         {"coded_encode_acc_2d": DIST_PIPE_STEPS * 8 * 4 // DIST_NPROC,
          "coded_decode_apply": DIST_PIPE_STEPS}, counts,
         f"logistic-paper pipelined on {DIST_NPROC} ranks")
@@ -3328,7 +3508,7 @@ def run_dist(launch_report):
         reduced={"steps": f"{DIST_PIPE_STEPS} and a drain, not {STEPS}: "
                           f"for the script's time"},
         nvidia_smi=nvidia_smi_line())
-    lm_ranks = [r[1] for r in group]
+    lm_ranks = [r[1] for r in jobs]
     out = _dist_compare("qwen3-1.7b", singles[1], lm_ranks, half)
     lm = out["launches_single"]
     if (not lm.get("coded_encode_3d") or not lm.get("coded_decode_2d")
@@ -3345,8 +3525,158 @@ def run_dist(launch_report):
         reduced={"n_layers": f"{DIST_LM_LAYERS} of 28, as the other phases "
                              f"cut depth", "seq": f"{DIST_LM_SEQ} tokens",
                  "weights": "random, seeded"},
-        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
+        nvidia_smi=nvidia_smi_line())
+    _dist_serve_check(serve_single, [r["serve"] for r in group], counts,
+                      group_s)
+    _dist_part_d(ckpt_single, group, resumed, first_files, counts,
+                 {"group_s_all_parts": group_s, "resume_group_s": resume_s})
+    say(phase="dist", part="done", seconds=time.perf_counter() - t_phase)
     return counts
+
+
+def _dist_serve_check(single, ranks, counts, group_s):
+    """Part (c): every rank's outputs, batch by batch, bitwise the single
+    process's; a rank's launches a batch half the encodes and flash
+    launches and the whole decode; the collectives' counts and bytes the
+    single process's."""
+    cfg = get_config("qwen3-1.7b")
+    code = make_code(*SERVE_CODE)
+    per_rank = code.n * code.d // DIST_NPROC
+    want = {"flash_attention": per_rank * flash_layers(cfg, SERVE_SEQ),
+            "coded_encode_2d": per_rank, "coded_decode_2d": 1}
+    want_single = {k: v * DIST_NPROC if k != "coded_decode_2d" else v
+                   for k, v in want.items()}
+    if any(b["launches"] != want_single for b in single["batches"]):
+        fail(f"dist (c): the single process launched "
+             f"{[b['launches'] for b in single['batches']]} a batch, "
+             f"expected {want_single}")
+    for b in single["batches"]:
+        if (b["outputs"].shape != (code.num_subsets, cfg.vocab)
+                or not np.isfinite(b["outputs"]).all() or b["failed_rows"]):
+            fail(f"dist (c): served outputs {b['outputs'].shape}, finite "
+                 f"{np.isfinite(b['outputs']).all()}, failed rows "
+                 f"{b['failed_rows']}")
+    for rep in ranks:
+        r = rep["rank"]
+        for j, (got, ref) in enumerate(zip(rep["batches"], single["batches"],
+                                           strict=True)):
+            if got["outputs"].tobytes() != ref["outputs"].tobytes():
+                fail(f"dist (c): rank {r}'s batch {j} differs from the "
+                     f"single process's by "
+                     f"{float(np.abs(got['outputs'] - ref['outputs']).max())}")
+            if got["launches"] != want:
+                fail(f"dist (c): rank {r} launched {got['launches']} in "
+                     f"batch {j}, expected {want}")
+            if (got["counts"], got["bytes"]) != (ref["counts"], ref["bytes"]):
+                fail(f"dist (c): rank {r}'s collectives {got['counts']} "
+                     f"{got['bytes']} against {ref['counts']} {ref['bytes']}")
+            if got["stragglers"] != list(DIST_SERVE_STRAGGLERS[j]):
+                fail(f"dist (c): rank {r} served batch {j} with stragglers "
+                     f"{got['stragglers']}")
+        counts[f"qwen3-1.7b CodedServer on {DIST_NPROC} ranks rank {r}"] = \
+            rep["launches"]
+    say(phase="dist", part="c", model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, seq_len=SERVE_SEQ, code=list(SERVE_CODE),
+        schedule="gather", batches=len(DIST_SERVE_STRAGGLERS),
+        stragglers=[list(p) for p in DIST_SERVE_STRAGGLERS], bitwise=True,
+        workers_by_rank=[rep["workers"] for rep in ranks],
+        launches_per_batch={"single": want_single, "rank": want},
+        launches_by_rank=[rep["launches"] for rep in ranks],
+        paths_by_rank=[{k: v for k, v in rep["paths"].items()
+                        if any(v.values())} for rep in ranks],
+        bytes_by_batch={"single": [b["bytes"] for b in single["batches"]],
+                        "by_rank": [[b["bytes"] for b in rep["batches"]]
+                                    for rep in ranks]},
+        collective_s_by_batch_and_rank=[rep["collective_s"] for rep in ranks],
+        wall_s={"single": [b["wall_s"] for b in single["batches"]],
+                "by_rank": [[b["wall_s"] for b in rep["batches"]]
+                            for rep in ranks]},
+        step_s={"single": [b["step_s"] for b in single["batches"]],
+                "by_rank": [[b["step_s"] for b in rep["batches"]]
+                            for rep in ranks]},
+        peak_bytes={"single": single["peak_bytes"],
+                    "by_rank": [rep["peak_bytes"] for rep in ranks]},
+        init_s={"single": single["init_s"],
+                "by_rank": [rep["init_s"] for rep in ranks]},
+        single_s=single["seconds"], group_s_all_parts=group_s,
+        reduced={"weights": "random, seeded",
+                 "batches": f"{len(DIST_SERVE_STRAGGLERS)}"},
+        nvidia_smi=nvidia_smi_line())
+
+
+def _dist_part_d(single, group, resumed, first_files, counts, wall):
+    """Part (d): the autotuned trainer's plans, events and state alike on
+    every rank, with a switch; the checkpointed runs: only rank 0 saved,
+    the first group left the cut run's snapshots, the fresh group restored
+    DIST_CKPT_CUT and ended with the uninterrupted run's state on both
+    ranks and the single process's, with a rank's share of the launches."""
+    code = make_code(*AT_CODE)
+    tuned = [r["tuned"] for r in group]
+    ref = tuned[0]
+    for t in tuned[1:]:
+        if (t["plans"], t["events"], t["digest"]) != (ref["plans"],
+                                                       ref["events"],
+                                                       ref["digest"]):
+            fail(f"dist (d): the tuned ranks differ: plans "
+                 f"{[x['plans'] for x in tuned]}")
+    if not ref["switched_at"]:
+        fail(f"dist (d): the tuner never switched: {ref['plans']}")
+    for r, t in enumerate(tuned):
+        if not (t["launches"].get("coded_encode_2d")
+                and t["launches"].get("coded_decode_2d")):
+            fail(f"dist (d): tuned rank {r} launched {t['launches']}")
+        counts[f"logistic-paper autotuned Trainer on {DIST_NPROC} ranks "
+               f"rank {r}"] = t["launches"]
+    snaps = [f"ckpt_{s:08d}.npz" for s in range(CKPT_EVERY, DIST_CKPT_CUT + 1,
+                                                  CKPT_EVERY)]
+    first = [r["ckpt"] for r in group]
+    if first_files != snaps:
+        fail(f"dist (d): the first group left {first_files}, not {snaps}")
+    want_saved = [int(f[5:13]) for f in snaps]
+    if [c["cut"]["saved"] for c in first] != \
+            [want_saved] + [[]] * (DIST_NPROC - 1):
+        fail(f"dist (d): saves by rank {[c['cut']['saved'] for c in first]}")
+    w = code.n // DIST_NPROC
+    want = {"coded_encode_2d": (CKPT_STEPS - DIST_CKPT_CUT) * w * code.d,
+            "coded_decode_2d": CKPT_STEPS - DIST_CKPT_CUT}
+    for rep in resumed:
+        r = rep["rank"]
+        if (rep["restored"], rep["steps"]) != (DIST_CKPT_CUT, CKPT_STEPS):
+            fail(f"dist (d): rank {r} restored {rep['restored']} and ended "
+                 f"at {rep['steps']}")
+        digests = {rep["digest"], single["digest"]} | {
+            c["uninterrupted"]["digest"] for c in first}
+        if len(digests) != 1:
+            fail(f"dist (d): rank {r}'s resumed state differs from the "
+                 f"uninterrupted runs'")
+        if {k: v for k, v in rep["launches"].items() if v} != want:
+            fail(f"dist (d): resumed rank {r} launched {rep['launches']}, "
+                 f"expected {want}")
+        if rep["saved"] != ([CKPT_STEPS] if r == 0 else []):
+            fail(f"dist (d): resumed rank {r} saved {rep['saved']}")
+        counts[f"logistic-paper Trainer resumed on {DIST_NPROC} ranks rank "
+               f"{r}"] = rep["launches"]
+    say(phase="dist", part="d", model="logistic-paper", code=list(AT_CODE),
+        tuned={"steps": DIST_TUNED_STEPS, "plans": ref["plans"],
+               "switched_at": ref["switched_at"], "same_on_every_rank": True,
+               "step_s_by_rank": [t["step_s"] for t in tuned],
+               "launches_by_rank": [t["launches"] for t in tuned]},
+        checkpoint={"global_batch": CKPT_BATCH, "every": CKPT_EVERY,
+                    "first_group_steps": DIST_CKPT_CUT,
+                    "snapshots": first_files,
+                    "saved_by_rank": [c["cut"]["saved"] for c in first],
+                    "resumed_at": DIST_CKPT_CUT, "steps": CKPT_STEPS,
+                    "bitwise_with": ["the uninterrupted 2-rank run",
+                                     "the single process"],
+                    "resumed_launches_by_rank": [r["launches"]
+                                                 for r in resumed],
+                    "losses": single["losses"]},
+        wall=wall, reduced={"global_batch": f"{CKPT_BATCH} rows for the "
+                                            f"checkpointed runs, 512 for the "
+                                            f"tuned one, as the checkpoint "
+                                            f"and autotune_train phases",
+                            "batches": "drawn on the card from a seed"},
+        nvidia_smi=nvidia_smi_line())
 
 
 def run_autotune_serve(args, params):

@@ -23,6 +23,14 @@ Every collective counts its calls (``Comm.counts``), which is how the tests
 pin "O(1) collectives per wire bucket", and the bytes of its result that
 one worker receives (``Comm.bytes``), the measure the reference's
 ``hlo_cost`` gives a collective.  The model axis has size 1.
+
+Besides the wire, a group makes the few decisions that must come out the
+same on every rank, none of them counted in ``counts`` or ``bytes``:
+``step_wall`` (the slowest rank's wall, which a tuner records),
+``check_same`` (a value every rank must hold alike, such as an adopted
+plan or a restored step), ``is_root`` (the one rank that writes a
+snapshot) and ``barrier``.  On ``LocalComm`` each is trivial.  The
+trainer and the server reach ``torch.distributed`` only through these.
 """
 from __future__ import annotations
 
@@ -87,6 +95,27 @@ class Comm:
         """(w, *s) values of this process's w workers -> the (*s) sum over
         all ``n`` workers."""
         raise NotImplementedError
+
+    # ---- decisions made once for all ranks (not wire traffic: never in
+    # ``counts`` or ``bytes``); every rank must call each at the same point
+    @property
+    def is_root(self) -> bool:
+        """Whether this process is the group's first (the one that writes
+        what the group writes once)."""
+        return True
+
+    def step_wall(self, seconds: float) -> float:
+        """The slowest process's ``seconds``: a coded step or batch waits
+        for its slowest process, and every process gets the same number
+        (exact: a maximum does not depend on order)."""
+        return float(seconds)
+
+    def check_same(self, what: str, value: str) -> None:
+        """Raise ``RuntimeError`` unless every process holds ``value``,
+        naming ``what`` and the values by rank (every process raises)."""
+
+    def barrier(self) -> None:
+        """Return once every process has reached this call."""
 
 
 class LocalComm(Comm):
@@ -179,6 +208,28 @@ class DistComm(Comm):
         out = self._gathered(x).sum(dim=0)
         self._count("psum", out)
         return out
+
+    @property
+    def is_root(self):
+        return self.rank == 0
+
+    def step_wall(self, seconds):
+        # gloo reduces a host tensor without a copy; nccl needs the card's
+        dev = torch.device("cpu") if self.backend == "gloo" else self.device
+        t = torch.tensor([float(seconds)], dtype=torch.float64, device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
+    def check_same(self, what, value):
+        values = [None] * self.world_size
+        dist.all_gather_object(values, value)
+        if len(set(values)) > 1:
+            raise RuntimeError(
+                f"the ranks disagree on {what}: "
+                + "; ".join(f"rank {r}: {v}" for r, v in enumerate(values)))
+
+    def barrier(self):
+        dist.barrier()
 
 
 def refuse_dist(comm: Comm | None, what: str, why: str) -> None:

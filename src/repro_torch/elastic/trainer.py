@@ -114,9 +114,9 @@ class ElasticTrainer(Trainer):
                                                     device=device))
         comm = trainer_kwargs.pop("comm", None) or self.comm_factory(code.n)
         refuse_dist(comm, "ElasticTrainer",
-                    "a membership change re-plans and resizes on each rank's "
-                    "own view; the ladder's decisions must be made on rank 0 "
-                    "and broadcast")
+                    "a resize changes the worker count n, and a group of P "
+                    "ranks splits n workers only when P divides n; "
+                    "re-forming the group at the new n is not written")
         super().__init__(cfg, code, optimizer, device=device, comm=comm,
                          **trainer_kwargs)
         pol = self.elastic

@@ -183,17 +183,6 @@ def run_job(job: TrainJob, device, comm=None, *, log_every: int = 0,
     return report
 
 
-def check_replicas(digest: str, nproc: int) -> None:
-    """Gather every rank's ``state_digest`` and raise ``RuntimeError`` if
-    any two differ (a collective: every rank of the group calls it)."""
-    import torch.distributed as dist
-    digests = [None] * nproc
-    dist.all_gather_object(digests, digest)
-    if len(set(digests)) > 1:
-        raise RuntimeError(f"the replicas diverged: state digests by rank "
-                           f"{digests}")
-
-
 def job_rank(rank: int, nproc: int, device, job: TrainJob,
              log_every: int = 0, log_path: str | None = None) -> dict:
     """One rank of a ``run_ranks`` group: run ``job`` over a ``DistComm``,
@@ -204,7 +193,7 @@ def job_rank(rank: int, nproc: int, device, job: TrainJob,
     report = run_job(job, device, comm,
                      log_every=log_every if rank == 0 else 0,
                      log_path=log_path if rank == 0 else None)
-    check_replicas(report["digest"], nproc)
+    comm.check_same("the replicas' state digest", report["digest"])
     report.update(rank=rank, transport=comm.transport)
     return report
 

@@ -23,7 +23,15 @@ k * q`` rounded up to ``lcm(WIRE_ALIGN, n)`` so the a2a schedule can slice it
 
 The reference runs the replicas as a ``shard_map`` over a device mesh; here
 they are the ``n`` workers of a ``repro_torch.comm`` group, walked in a
-Python loop on one device (see ``train/coded_step.py``).
+Python loop (see ``train/coded_step.py``): all ``n`` of them under the
+default single-process group, a rank's block (``comm.workers``) under a
+``DistComm``.  The placed batch, ``C``, ``rho`` and ``mask`` keep the
+global replica index; the rows of the wire (and of the partial
+certificate's sums) are this process's replicas, in order.  Every rank
+decodes the gathered wire (the ``gather`` schedule), or its slices and
+then gathers them (``a2a``), or sums the raw rows (``psum``), so every
+rank ends with the whole decoded ``(B, *out_shape)`` output, bitwise the
+single-process one.
 
 Hedging.  ``W`` is the host float64 solve with zero rows at stragglers
 (``coding.make_step_inputs``) and the wire masks straggler payloads to
@@ -51,14 +59,10 @@ import torch.nn.functional as F
 
 from .. import coding
 from .._device import resolve_device
-from ..comm import Comm, make_local_comm, refuse_dist
+from ..comm import Comm, make_local_comm
 from ..core import GradCode
 from ..models import api as model_api
 from ..models import common as cm
-
-# why a DistComm is refused here (``comm.refuse_dist``)
-SERVE_ACROSS_RANKS = ("the forward walks every replica in one process; a "
-                      "rank computing only its own replicas is not written")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,9 +116,10 @@ def make_coded_forward(cfg, code: GradCode, *,
     ``batch_per_subset`` is ``b``; the engine batch is ``B = k * b`` with
     ``k = code.num_subsets`` and arrives in the coded ``(n, d, b, ...)``
     layout.  ``seq_len`` is the LM families' prompt length the server pads
-    requests to (an encdec request's frames).  ``device`` defaults to the card and raises when there is
-    none; ``comm`` defaults to the single-process group of ``code.n``
-    replicas on it.
+    requests to (an encdec request's frames).  ``device`` defaults to the
+    card and raises when there is none; ``comm`` defaults to the
+    single-process group of ``code.n`` replicas on it (a ``DistComm`` splits
+    them over ranks, each of which runs its own replicas' forwards).
     """
     spec = spec if spec is not None else coding.SchemeSpec()
     if spec.pipelined or spec.fuse_apply:
@@ -123,9 +128,9 @@ def make_coded_forward(cfg, code: GradCode, *,
             "fuse the optimizer update); the serving forward has neither — "
             "build the CodedServer from a spec without them")
     dev = resolve_device(device)
-    refuse_dist(comm, "coded serving", SERVE_ACROSS_RANKS)
     comm = comm or make_local_comm(code.n, dev)
     n = comm.n
+    workers = comm.workers
     if code.n != n:
         raise ValueError(f"code.n={code.n} != data-parallel degree {n}")
     partial = spec.partial
@@ -161,7 +166,7 @@ def make_coded_forward(cfg, code: GradCode, *,
 
     def body(params, batch, W, mask, rho, err_factor=None):
         rows, ss_rows = [], []
-        for i in range(n):
+        for i in workers:
             buf = torch.zeros((L,), dtype=f32, device=dev)
             ss_acc = torch.zeros((), dtype=f32, device=dev)
             for slot in range(d):
@@ -189,7 +194,7 @@ def make_coded_forward(cfg, code: GradCode, *,
         # equal split makes duplicated subsets average exactly (the train
         # step's straggler-aware psum body)
         rows = []
-        for i in range(n):
+        for i in workers:
             buf = torch.zeros((k * s_out,), dtype=f32, device=dev)
             for slot in range(d):
                 y = forward_fn(params, subset(batch, i, slot)).to(f32)

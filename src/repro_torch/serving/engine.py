@@ -17,6 +17,14 @@ straggler source, every served batch feeds a ``StepRecord`` to a
 ``ServingAutotuner``, which re-ranks the uniform (d, s, m) x schedule
 family by modeled p99 under the policy's arrival process; an adopted plan
 swaps code and schedule through the per-scheme artifact cache.
+
+Across ranks (``comm=`` a ``repro_torch.comm.DistComm``): every rank is
+given the same requests and the same seeded straggler source, so the
+host-side draws, the float64 solve for ``W`` and the failed rows are alike
+on every rank; each rank runs its own replicas' forwards and ends with the
+whole decoded batch.  The tuner records the slowest rank's wall
+(``Comm.step_wall``), so every rank adopts the same plan at the same
+batch, and the group checks that it did (``Comm.check_same``).
 """
 from __future__ import annotations
 
@@ -29,7 +37,7 @@ import torch
 
 from .. import coding
 from .._device import resolve_device
-from ..comm import Comm, refuse_dist
+from ..comm import Comm
 from ..core import make_code
 from ..data import CodedBatcher
 from ..models import api as model_api
@@ -38,8 +46,7 @@ from ..tune.arrivals import ServingAutotuner
 from ..tune.stragglers import as_straggler_source
 from ..tune.telemetry import record_from_times
 from .batcher import Request, RequestBatcher
-from .coded import (SERVE_ACROSS_RANKS, ForwardArtifacts,
-                    failed_request_rows, make_coded_forward)
+from .coded import ForwardArtifacts, failed_request_rows, make_coded_forward
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,7 +201,8 @@ class BatchResult:
 
 
 class CodedServer:
-    """Batched coded-inference engine over ``n`` replicas on one device.
+    """Batched coded-inference engine over ``n`` replicas, in one process
+    or split over the ranks of a ``DistComm``.
 
     One ``repro_torch.coding.SchemeSpec`` (the same object a
     ``make_coded_train_step`` call accepts) fixes the scheme, and a straggler
@@ -202,7 +210,8 @@ class CodedServer:
     engine decodes from the fastest ``n - len(stragglers)`` replicas.  Where
     the reference takes a mesh, the port takes ``device`` (default: the
     card; raises when there is none) and optionally the replica group
-    ``comm``.  ``params`` must lie on ``device``.
+    ``comm`` (every rank of a ``DistComm`` builds the server alike and is
+    given the same requests).  ``params`` must lie on ``device``.
 
     With ``autotune=`` a ``repro_torch.tune.ServingPolicy`` (and a timed
     straggler source) each served batch records its per-replica timings and
@@ -226,7 +235,6 @@ class CodedServer:
         first served batch."""
         self.cfg = cfg
         self.device = resolve_device(device)
-        refuse_dist(comm, "CodedServer", SERVE_ACROSS_RANKS)
         self.params = params
         self.spec = spec if spec is not None else coding.SchemeSpec()
         self.slo = slo if slo is not None else ServeSLO()
@@ -336,12 +344,17 @@ class CodedServer:
         failed = tuple(failed_request_rows(code, stragglers, self.b))
         self._served += 1
         if self._tuner is not None and times is not None:
+            # every rank records the slowest rank's wall, so every rank
+            # ranks the same records and adopts the same plan
             self._tuner.record(record_from_times(
                 self._served, code, self.spec.schedule, self.spec.packed,
-                times, n_drop=len(stragglers), measured_step_s=wall))
+                times, n_drop=len(stragglers),
+                measured_step_s=arts.comm.step_wall(wall)))
             plan = self._tuner.maybe_replan(self._served)
             if plan is not None:
                 self._apply_plan(plan)
+            arts.comm.check_same(f"the serving scheme after batch "
+                                 f"{self._served}", repr(self._scheme_key()))
         nvalid = self.batch_requests if valid is None else int(valid)
         return BatchResult(
             outputs=out[:nvalid].cpu().numpy(),

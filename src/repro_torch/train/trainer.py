@@ -37,11 +37,16 @@ Across ranks (``comm=`` a ``repro_torch.comm.DistComm``): every rank builds
 the same trainer from the same seeds (the code, the float64 solve for
 ``W``, the straggler draws and the batch are host-side and alike), computes
 its own workers' subsets and applies the same update, so the parameters
-stay replicated.
+stay replicated.  The decisions that would otherwise differ by rank are
+made once for all of them: the tuner records the slowest rank's wall
+(``Comm.step_wall``), so every rank adopts the same plan at the same step,
+and the group checks after each step that it did (``Comm.check_same``);
+only the root rank writes a snapshot, and every rank waits for it
+(``Comm.barrier``); every rank restores the newest snapshot, and the group
+checks that they restored the same step.
 
 Refused with ``NotImplementedError``: the reference's deprecated per-lever
-and straggler keyword arguments (use ``spec=`` and ``straggler_source=``);
-under a ``DistComm``, ``autotune=`` and ``checkpoint_dir=`` (ROADMAP A.8.5).
+and straggler keyword arguments (use ``spec=`` and ``straggler_source=``).
 """
 from __future__ import annotations
 
@@ -56,7 +61,7 @@ import torch
 from .._device import resolve_device
 from ..coding import SchemeSpec, make_step_inputs
 from ..checkpoint import CheckpointManager
-from ..comm import Comm, refuse_dist
+from ..comm import Comm
 from ..convert import flatten, unflatten
 from ..core import (BlockCompositeCode, ExpanderCode,
                     FractionalRepetitionCode, GradCode, HeteroCode, HeteroPlan,
@@ -102,17 +107,6 @@ class Trainer:
                 raise TypeError(f"Trainer got an unexpected keyword "
                                 f"argument {k!r}")
             raise NotImplementedError(f"Trainer({k}=...): {_LATER[k]}")
-        if autotune is not None:
-            refuse_dist(comm, "Trainer(autotune=...)",
-                        "a timed tuner decides on each rank's own clock, so "
-                        "the ranks would diverge and then block in a "
-                        "collective; the decision must be made on rank 0 "
-                        "and broadcast")
-        if checkpoint_dir:
-            refuse_dist(comm, "Trainer(checkpoint_dir=...)",
-                        "every rank would write the same snapshot; saving "
-                        "on rank 0 and restoring on every rank is not "
-                        "written")
         self.cfg = cfg
         self.code = code
         self.optimizer = optimizer
@@ -180,8 +174,13 @@ class Trainer:
                               for k, v in self.opt_state.items()}}
 
     def _restore(self) -> None:
-        """Resume from the newest readable snapshot, if there is one."""
+        """Resume from the newest readable snapshot, if there is one; every
+        rank of a group restores, and the group raises unless they all
+        restored the same step."""
         restored = self._ckpt.restore_latest(self._snapshot())
+        self.arts.comm.check_same(
+            "the restored checkpoint step",
+            "none" if restored is None else str(restored[1].get("step", 0)))
         if restored is None:
             return
         state, meta = restored
@@ -350,16 +349,22 @@ class Trainer:
 
     def maybe_checkpoint(self, force: bool = False) -> None:
         """Save a snapshot when checkpointing is on and the step count is a
-        multiple of ``checkpoint_every`` (or ``force``)."""
+        multiple of ``checkpoint_every`` (or ``force``).  In a group of
+        ranks the root writes it (and prunes the old ones) and every rank
+        waits until it is on disk."""
         if self._ckpt is None:
             return
-        if force or (self.checkpoint_every
-                     and self._step_count % self.checkpoint_every == 0):
+        if not (force or (self.checkpoint_every
+                          and self._step_count % self.checkpoint_every == 0)):
+            return
+        group = self.arts.comm
+        if group.is_root:
             self._ckpt.save(self._step_count, self._snapshot(),
                             {"arch": self.cfg.name,
                              "data_cursor": self._data_cursor,
                              "seed": self.seed,
                              "scheme_sig": repr(self._scheme_sig)})
+        group.barrier()
 
     def skip_to_cursor(self, stream: Iterator, consumed: int = 0) -> Iterator:
         """Advance a data stream to the restored batch cursor.
@@ -441,8 +446,10 @@ class Trainer:
         if draw.times is not None:
             # a fresh signature's wall is kept out of the step-cost book
             # (measured_step_s 0) and prices the recompile charge instead;
-            # a fill retires no update, so its wall is no step cost either
-            wall = out["step_time_s"]
+            # a fill retires no update, so its wall is no step cost either.
+            # The wall is the slowest rank's, so every rank's tuner sees
+            # the same records
+            wall = arts.comm.step_wall(out["step_time_s"])
             uncal = fresh or metrics is None
             rec = record_from_times(self._step_count, self.code,
                                     self.schedule, self.packed, draw.times,
@@ -456,6 +463,9 @@ class Trainer:
                     self._step_count, departed=self._departed_workers())
                 if new_plan is not None:
                     self._apply_plan(new_plan)
+                arts.comm.check_same(
+                    f"the scheme after step {self._step_count}",
+                    repr(self._scheme_sig))
             else:
                 self.telemetry.append(rec)
         self._step_count += 1

@@ -18,9 +18,11 @@ test), each computing only its own workers.
   ``Trainer`` on 8 forced host devices, from ``convert.py``'s parameters
   (``lm_train_cases.py``'s run and ``TRAJ_TOL``).
 - What is refused: a world size that does not divide ``n``, ``nccl`` with
-  two ranks on one card, and ``autotune=`` / ``checkpoint_dir=`` /
-  ``ElasticTrainer`` / coded serving under a ``DistComm``; a rank that
-  raises, dies or hangs ends its group with an error in time.
+  two ranks on one card, and ``ElasticTrainer`` under a ``DistComm`` (a
+  resize changes ``n``); a rank that raises, dies or hangs ends its group
+  with an error in time.  ``autotune=``, ``checkpoint_dir=``,
+  ``make_coded_forward`` and ``CodedServer`` now construct under a
+  ``DistComm`` (``tests/test_torch_dist_serving.py`` runs them).
 - ``python -m repro_torch.launch.train --device cpu --nproc 2
   --dist-backend gloo`` exits 0 with the final line of ``--nproc 1``.
 
@@ -133,7 +135,8 @@ def _collectives(comm, x):
 
 
 def _refusals(device, ckpt_dir):
-    """What a rank refuses under a DistComm: {case: (type, message)}."""
+    """What a rank refuses, or builds, under a DistComm: {case: (type,
+    message)}, ``(None, "")`` for a call that raised nothing."""
     from repro_torch.core import make_code
     from repro_torch.core.runtime_model import RuntimeParams
     from repro_torch.elastic import ElasticTrainer
@@ -404,17 +407,21 @@ def test_state_digest_sees_a_one_ulp_change(dtype):
 
 
 # ------------------------------------------------------------- refusals
+# the tuners, checkpoints and coded serving were refused until they ran
+# across ranks: their cases now assert that the same calls raise nothing
 @pytest.mark.parametrize("case,kind,words", [
     ("world size does not divide n", "ValueError", "do not divide"),
-    ("autotune", "NotImplementedError", "rank 0 and broadcast"),
-    ("checkpoint_dir", "NotImplementedError", "A.8.5"),
-    ("ElasticTrainer", "NotImplementedError", "rank 0 and broadcast"),
-    ("make_coded_forward", "NotImplementedError", "A.8.5"),
-    ("CodedServer", "NotImplementedError", "A.8.5")])
+    ("autotune", None, ""),
+    ("checkpoint_dir", None, ""),
+    ("ElasticTrainer", "NotImplementedError", "P divides n"),
+    ("make_coded_forward", None, ""),
+    ("CodedServer", None, "")])
 def test_refused_under_a_dist_comm(group2, case, kind, words):
     for res in group2:
         got_kind, msg = res["refusals"][case]
         assert got_kind == kind and words in msg, (got_kind, msg)
+        if case == "ElasticTrainer":
+            assert "A.8.5" in msg and "tun" not in msg, msg
 
 
 def test_world_size_that_does_not_divide_n_is_refused_before_a_group():
