@@ -80,10 +80,6 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            24 / 40 / 21 / 56 encodes (home, degraded, 7, burst) and one
            decode, all on the vector path; resize and prewarm walls; the 2D
            decode timed at both cluster sizes' buckets
-  launch   ``python -m repro_torch.launch.train`` on logistic-paper at full
-           width, code (8, 4, 2, 2), 5 NAG steps, as a subprocess: exit 0, a
-           finite final loss, coded fraction 1.000, the library phase
-           ``build`` made, 160 encodes and 5 decodes on the vector path
   serve    the serving path: ``CodedServer`` on ``qwen3-1.7b`` at full width
            (28 layers, d_model 2048, random weights from a seed, f32) with
            code (4, 3, 1, 2), one request per subset and 4096-token prompts:
@@ -308,6 +304,27 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            backwards), each counted from 0 and checked as the 1500-frame
            phases; the plain flash version never runs over the phase.  The
            four phases' wall is printed as ``encdec_phases``
+  examples the twins of the reference's examples (``examples/*_torch.py``)
+           through their ``run()``, each counted from 0: ``logistic_amazon``
+           at l = 343474, n = 8, the naive (8, 1, 0, 1) on psum and the
+           optimal m = 1 and m > 1 codes ((8, 8, 7, 1), (8, 8, 5, 3)) on
+           gather with random stragglers, 512 samples and 10 iterations:
+           640 2D encodes and 10 decodes on the vector path for the m = 1
+           code, none for the m = 3 one (3 does not divide l: beta is summed
+           by its weights, as in the reference's plan); each scheme again on
+           the plain backend (the final betas within 1e-4 of the largest
+           element), each coded scheme's beta against the naive one's (1e-3);
+           ``serve_batched`` on qwen3-1.7b at full width and depth, batch 8,
+           32-token prompts, 16 greedy tokens, the first token against the
+           argmax of ``make_forward``'s logits; ``train_lm_coded`` on its
+           ``--full-100m`` config, 3 steps, finite losses and the coding
+           launches; ``quickstart`` at its own sizes (20 + 10 + 1 + 22
+           steps of the reduced qwen3-1.7b): at least one switch of the
+           tuner and a finite partial-step bound.  One line a twin
+  launch   ``python -m repro_torch.launch.train`` on logistic-paper at full
+           width, code (8, 4, 2, 2), 5 NAG steps, as a subprocess: exit 0, a
+           finite final loss, coded fraction 1.000, the library phase
+           ``build`` made, 160 encodes and 5 decodes on the vector path
   dist     (last: see main) the coded train step across processes on
            the one card, two ``gloo`` ranks each computing half the workers
            (``repro_torch.comm.DistComm``), each rank bitwise against the
@@ -413,7 +430,8 @@ try:
     from repro_torch import coding, convert
     from repro_torch.configs import get_config
     from repro_torch.core import HeteroCode, make_code
-    from repro_torch.data import CodedBatcher, make_synthetic_batch
+    from repro_torch.data import (CodedBatcher, make_synthetic_batch,
+                                  synthetic_logistic_dataset)
     from repro_torch.elastic import (ElasticPolicy, ElasticTrainer,
                                      MembershipTrace)
     from repro_torch.kernels import _build, _launch, flash_attn, ops
@@ -573,6 +591,8 @@ ENCDEC_LONG_FRAMES = 3000
 # 938.9 s; cut first all the same, as the script passed its 900 s
 ENCDEC_LONG_GEN_NEW = 4
 ENCDEC_LONG_GEN_CHECKED = (0, ENCDEC_LONG_GEN_NEW - 1)
+PLAIN_FLASH_REPS = 5           # timed calls of a plain flash version (25
+#                                until the examples phase came in)
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 HOST_CALLS = 200               # calls of one host-cost measurement
 
@@ -580,7 +600,16 @@ torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in full f32
 torch.backends.cudnn.allow_tf32 = False
 
 
+SECONDS_BY_PHASE = {}   # wall since the previous line, by the line's phase
+_LAST_LINE = [time.perf_counter()]
+
+
 def say(**obj):
+    now = time.perf_counter()
+    if "phase" in obj:
+        SECONDS_BY_PHASE[obj["phase"]] = (SECONDS_BY_PHASE.get(obj["phase"], 0)
+                                          + now - _LAST_LINE[0])
+    _LAST_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -671,12 +700,15 @@ ENC3D = [(3, 16, 2, 128), (4, 256, 2, 64), (2, 40, 5, 96), (2, 7, 3, 33),
          (1, 3072, 2, 2048), ENCDEC_VOCAB_ENC]
 # xlstm-350m's largest 3D encodes at full depth, f32 (train_ssm runs half
 # the pairs: the stacks' R halved): the 2048 x 2048 stacks (12, 2048, 2048),
-# pairs/slstm/r (12, 4, 4, 512, 512), embed and unembed
-SSM_ENC3D = [(1, 1024, 2, 24576), (1, 256, 2, 98304), (1, 25152, 2, 1024)]
-# train_hybrid's: mamba/in_proj (38, 2048, 8384) grouped on 8384 (2.61 GB
-# a launch), and a stacked vector (38, 4096) whose R = 38 is no whole
-# number of 16-byte vectors (the scalar path by shape)
-HYBRID_ENC3D = [(1, 4192, 2, 77824), (1, 2048, 2, 38)]
+# pairs/slstm/r (12, 4, 4, 512, 512), embed (50304, 1024) and unembed
+# (1024, 50304), grouped on d_model (the vocabulary lies on the reference's
+# model axis, which the planner skips)
+SSM_ENC3D = [(1, 1024, 2, 24576), (1, 256, 2, 98304), (1, 512, 2, 50304)]
+# train_hybrid's: mamba/in_proj (38, 2048, 8384) grouped on 2048 (its 8384
+# lies on the reference's model axis; 2.61 GB a launch), and a stacked
+# vector (38, 4096) whose R = 38 is no whole number of 16-byte vectors (the
+# scalar path by shape)
+HYBRID_ENC3D = [(1, 1024, 2, 318592), (1, 2048, 2, 38)]
 DEC2D = [(4, 64, 2), (16, 512, 3), (32, 96, 8), (10, 1280, 1), (12, 1001, 19),
          (64, 77, 32), (8, 171776, 2), SERVE_DEC, MOE_DEC, VLM_DEC,
          HYBRID_DEC, ENCDEC_DEC]
@@ -1521,7 +1553,10 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False,
             kind == "decode" and len(shape) == 2):
         prefix = "coded_decode" if kind.startswith("decode") else "coded_encode"
         extra["path"] = [p for p, n in _paths_since(paths0, prefix).items() if n]
-    plain_ms = time_ms(lambda i: plain(sets[i % copies]))
+    # the plain flash versions take 3-170 ms a call: fewer calls
+    plain_reps = (dict(reps=PLAIN_FLASH_REPS, warmup=1)
+                  if kind.startswith("flash") else {})
+    plain_ms = time_ms(lambda i: plain(sets[i % copies]), **plain_reps)
     library_ms = (time_ms(lambda i: library(sets[i % copies]))
                   if library is not None else None)
     ms_warm = time_ms(lambda i: kernel(sets[0]))
@@ -1535,6 +1570,7 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False,
             "out_dtype": str(out_dtype).split(".")[-1],
             "bytes": nbytes, "input_copies": copies, "ms": ms,
             "ms_l2_warm": ms_warm, "plain_ms": plain_ms,
+            "plain_reps": plain_reps.get("reps", 25),
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "flops": flops,
             "achieved_GBps": nbytes / (ms * 1e-3) / 1e9,
@@ -3051,8 +3087,210 @@ def run_elastic(args):
     return counts
 
 
+EX_LOGISTIC = dict(samples=512, iters=10, n=8)   # logistic_amazon at l = 343474
+EX_LOGISTIC_CUT = {
+    "samples": "512, cut from 8192 (the host draws 1.9-3.7 s per 512 rows "
+               "at l = 343474): 384 training rows, 128 test rows",
+    "iters": "10, cut from 40: each scheme runs twice (the plain backend's "
+             "betas)"}
+EX_BETA_RTOL = 1e-4            # each scheme's beta against its plain-backend run
+EX_SCHEME_GAP = 1e-3           # each coded scheme's beta against the naive one's
+EX_LM_STEPS = 3                # train_lm_coded --full-100m steps, cut from 40
+
+
+def _example(name):
+    """``examples/<name>_torch.py``, imported by its path."""
+    import importlib.util
+    path = HERE / "examples" / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _counted(label, fn, require_vector=True):
+    """Run ``fn()`` with the launch counts set to 0 just before it and read
+    just after; file them under ``label``."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    _note_paths(label, require_vector=require_vector)
+    return out, counts
+
+
+def _coding(launches):
+    return {k: v for k, v in launches.items() if v and k.startswith("coded_")}
+
+
+def run_examples(args):
+    """The four twins of ``examples/`` through their ``run()``, on the card,
+    each counted from 0.  ``logistic_amazon`` at l = 343474 (n = 8, the
+    three schemes), again on the plain backend for the final betas;
+    ``serve_batched`` on qwen3-1.7b at full width and depth, its first
+    token against ``make_forward``; ``train_lm_coded`` on the ``--full-100m``
+    config; ``quickstart`` at its own sizes.  One line a twin."""
+    t_phase = time.perf_counter()
+    counts = {}
+
+    # ---- logistic_amazon: the paper's Section V at its width
+    la = _example("logistic_amazon")
+    dim = get_config("logistic-paper").d_model
+    t0 = time.perf_counter()
+    data = synthetic_logistic_dataset(EX_LOGISTIC["samples"], dim, seed=0)[:2]
+    draw_s = time.perf_counter() - t0
+    label = "examples/logistic_amazon_torch.py run()"
+    t0 = time.perf_counter()
+    res, counts[label] = _counted(label, lambda: la.run(
+        data=data, device=DEV, out=None, **EX_LOGISTIC))
+    run_s = time.perf_counter() - t0
+    plain = la.run(data=data, device=DEV, out=None, backend="ref",
+                   **EX_LOGISTIC)
+    schemes, naive = {}, res["schemes"]["naive"]["beta"]
+    for name, sc in res["schemes"].items():
+        want = plain["schemes"][name]["beta"]
+        ms = sc["step_ms"]
+        schemes[name] = {
+            "describe": sc["describe"], "coded_fraction": sc["coded_fraction"],
+            "final_auc": res["results"][name]["auc"][-1],
+            "sim_time_to_target_s": res["time_to_target"][name],
+            "sim_time_s": res["results"][name]["cum_time"][-1],
+            "ms_per_step_median": statistics.median(ms[1:]),
+            "ms_first_step": ms[0], "launches": _coding(sc["launches"]),
+            "paths": {k: v for k, v in sc["paths"].items()
+                      if v["vector"] or v["scalar"]},
+            "beta_rel_err_vs_plain_backend": _rel_err(
+                torch.from_numpy(sc["beta"]), torch.from_numpy(want)),
+            "beta_rel_gap_vs_naive": _rel_err(torch.from_numpy(sc["beta"]),
+                                              torch.from_numpy(naive))}
+    for name, row in schemes.items():
+        sc = res["schemes"][name]
+        if row["beta_rel_err_vs_plain_backend"] > EX_BETA_RTOL:
+            fail(f"examples: logistic_amazon {name}: beta "
+                 f"{row['beta_rel_err_vs_plain_backend']:.3g} from the plain "
+                 f"backend's")
+        if row["beta_rel_gap_vs_naive"] > EX_SCHEME_GAP:
+            fail(f"examples: logistic_amazon {name}: beta "
+                 f"{row['beta_rel_gap_vs_naive']:.3g} from the naive "
+                 f"scheme's")
+        if name == "naive":
+            continue
+        # beta (l = 343474 = 2 * 171737) is coded where m divides l: an
+        # m = 3 scheme sums it by its straggler-aware weights, uncoded
+        n, d, _, m = sc["code"]
+        coded = dim % m == 0
+        want = (_expect(coded_encode_2d=EX_LOGISTIC["iters"] * n * d,
+                        coded_decode_2d=EX_LOGISTIC["iters"])
+                if coded else _expect())
+        if sc["launches"] != want or row["coded_fraction"] != float(coded):
+            fail(f"examples: logistic_amazon {name}: coded fraction "
+                 f"{row['coded_fraction']}, launches {sc['launches']}, "
+                 f"not {want}")
+        if any(v["scalar"] for v in sc["paths"].values()):
+            fail(f"examples: logistic_amazon {name}: scalar path "
+                 f"{sc['paths']}")
+    say(phase="examples", example="logistic_amazon", model="logistic-paper",
+        l=dim, **EX_LOGISTIC, reduced=EX_LOGISTIC_CUT,
+        triples=res["triples"], auc_target=res["target"], schemes=schemes,
+        launches=counts[label], data_draw_s=draw_s, run_s=run_s,
+        beta_rtol=EX_BETA_RTOL, scheme_gap_limit=EX_SCHEME_GAP,
+        nvidia_smi=nvidia_smi_line())
+    del data, res, plain
+
+    # ---- serve_batched on qwen3-1.7b at full width and depth
+    sb = _example("serve_batched")
+    cfg = get_config("qwen3-1.7b")
+    label = "examples/serve_batched_torch.py run()"
+    res, counts[label] = _counted(label, lambda: sb.run(cfg, device=DEV))
+    with torch.no_grad():
+        logits = model_api.make_forward(cfg)(
+            res["params"], {"tokens": torch.from_numpy(res["prompts"]).to(DEV)})
+    first = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+    if not np.array_equal(first, res["tokens"][:, 0]):
+        fail(f"examples: serve_batched's first tokens {res['tokens'][:, 0]} "
+             f"are not make_forward's argmax {first}")
+    if counts[label] != _expect():
+        fail(f"examples: serve_batched launched {counts[label]} (32-token "
+             f"prompts run no flash kernel)")
+    batch, new = res["tokens"].shape
+    say(phase="examples", example="serve_batched", model=cfg.name,
+        n_layers=cfg.n_layers, d_model=cfg.d_model, batch=batch,
+        prompt_len=res["prompts"].shape[1], max_new=new,
+        reduced={"weights": "random, seeded"},
+        wall_s=res["wall_s"], tok_per_s=res["tok_per_s"],
+        ms_per_token=res["wall_s"] / new * 1e3,
+        first_token_is_make_forward_argmax=True,
+        tokens_head=res["tokens"][:2].tolist(), launches=counts[label],
+        nvidia_smi=nvidia_smi_line())
+    del res, logits
+
+    # ---- train_lm_coded --full-100m
+    tl = _example("train_lm_coded")
+    cfg = tl.full_100m_config()
+    label = "examples/train_lm_coded_torch.py run() --full-100m"
+    res, counts[label] = _counted(
+        label, lambda: tl.run(cfg, steps=EX_LM_STEPS, log=None, log_every=0,
+                              device=DEV), require_vector=False)
+    losses = [m["loss"] for m in res["logs"]]
+    coding = _coding(counts[label])
+    if not all(np.isfinite(losses)):
+        fail(f"examples: train_lm_coded losses {losses}")
+    if not (coding.get("coded_encode_3d") and coding.get("coded_decode_2d")):
+        fail(f"examples: train_lm_coded launched {counts[label]}")
+    step_ms = [m["step_time_s"] * 1e3 for m in res["logs"]]
+    say(phase="examples", example="train_lm_coded", model=cfg.name,
+        n_params=res["n_params"], code=res["describe"], steps=EX_LM_STEPS,
+        reduced={"steps": f"{EX_LM_STEPS}, cut from 40"}, losses=losses,
+        step_ms=step_ms, ms_per_step_median=statistics.median(step_ms[1:]),
+        launches=coding, paths=KERNEL_PATHS[label],
+        nvidia_smi=nvidia_smi_line())
+    del res
+
+    # ---- quickstart at its own sizes
+    qs = _example("quickstart")
+    label = "examples/quickstart_torch.py run()"
+    t0 = time.perf_counter()
+    res, counts[label] = _counted(label, lambda: qs.run(device=DEV,
+                                                        log_every=0),
+                                  require_vector=False)
+    qs_s = time.perf_counter() - t0
+    a, p = res["autotune"], res["partial"]["metrics"]
+    losses = [m["loss"] for part in ("uniform", "hetero", "autotune")
+              for m in res[part]["logs"]] + [p["loss"]]
+    if a["switches"] < 1:
+        fail(f"examples: quickstart's tuner never switched: {a['events']}")
+    if not (np.isfinite(p["decode_err_bound"]) and all(np.isfinite(losses))):
+        fail(f"examples: quickstart partial bound {p['decode_err_bound']}, "
+             f"losses {losses}")
+    say(phase="examples", example="quickstart",
+        uniform={"code": res["uniform"]["describe"],
+                 "coded_fraction": res["uniform"]["coded_fraction"],
+                 "loss": [res["uniform"]["logs"][0]["loss"],
+                          res["uniform"]["logs"][-1]["loss"]]},
+        hetero={"loads": res["hetero"]["loads"],
+                "loss": [res["hetero"]["logs"][0]["loss"],
+                         res["hetero"]["logs"][-1]["loss"]]},
+        partial={"loss": p["loss"], "decode_err_bound": p["decode_err_bound"]},
+        autotune={"code": a["code"], "switches": a["switches"],
+                  "cached_schemes": a["cached_schemes"],
+                  "events": [(e["step"], e["switched"], e["best"])
+                             for e in a["events"]]},
+        launches=_coding(counts[label]), seconds=qs_s,
+        nvidia_smi=nvidia_smi_line())
+    say(phase="examples", part="done", seconds=time.perf_counter() - t_phase)
+    return counts
+
+
+# 32 rows a subset (256 a step; 64 until the examples phase came in): the
+# host draws 1.4 MB a row at l = 343474, in the launcher and in each rank
+LAUNCH_CUT = {"batch_per_subset": "32 (256 rows a step), cut from 64 for the "
+                                  "script's time (phase examples): the host "
+                                  "draws each step's batch"}
 LAUNCH_ARGV = ["--arch", "logistic-paper", "--full", "--n-data", "8", "--d",
-               "4", "--s", "2", "--m", "2", "--batch-per-subset", "64",
+               "4", "--s", "2", "--m", "2", "--batch-per-subset", "32",
                "--steps", "5", "--optimizer", "nag", "--lr", "1e-6",
                "--stragglers", "random"]
 # ``python -m repro_torch.launch.train`` as runpy runs it, then the kernel
@@ -3102,7 +3340,8 @@ def run_launch(coded_fraction):
     label = "python -m repro_torch.launch.train"
     KERNEL_PATHS[label] = {k: v for k, v in info["paths"].items()
                            if v["vector"] or v["scalar"]}
-    say(phase="launch", argv=LAUNCH_ARGV, exit_code=res.returncode,
+    say(phase="launch", argv=LAUNCH_ARGV, reduced=LAUNCH_CUT,
+        exit_code=res.returncode,
         final_line=lines[-2], step_lines=lines[:-2], launches=info["launches"],
         library=info["library"], seconds=wall, nvidia_smi=nvidia_smi_line())
     return {label: info["launches"]}, info["reports"][0]
@@ -3452,7 +3691,8 @@ def run_dist(launch_report):
                          f"launch.train --nproc {DIST_NPROC} sync")
     say(phase="dist", part="a", mode="sync", model="logistic-paper",
         argv=argv + flags, rank_map=lines[0], final_line=lines[-2], **out,
-        launcher_wall_s=wall, nvidia_smi=nvidia_smi_line())
+        launcher_wall_s=wall, reduced=LAUNCH_CUT,
+        nvidia_smi=nvidia_smi_line())
     # (a), pipelined, and (b): single-process runs here, then both jobs on
     # one group of ranks
     pipe_argv = argv + ["--optimizer", "sgd", "--pipelined", "--steps",
@@ -3506,7 +3746,7 @@ def run_dist(launch_report):
         argv=pipe_argv + flags, started_by="run_ranks in this script, the "
         "launcher's job (launch.train.make_job of argv)", **out, wall=wall,
         reduced={"steps": f"{DIST_PIPE_STEPS} and a drain, not {STEPS}: "
-                          f"for the script's time"},
+                          f"for the script's time", **LAUNCH_CUT},
         nvidia_smi=nvidia_smi_line())
     lm_ranks = [r[1] for r in jobs]
     out = _dist_compare("qwen3-1.7b", singles[1], lm_ranks, half)
@@ -5154,8 +5394,11 @@ def main():
     if spilled:
         fail(f"flash kernels spill registers: {spilled}")
 
+    t_checks = time.perf_counter()
     errs = check_kernels()
+    t_bwd = time.perf_counter()
     errs["flash_attention_bwd"] = check_flash_bwd(torch.Generator().manual_seed(5))
+    t_measures = time.perf_counter()
     main_shapes = {
         "coded_encode_2d": measure("encode", (1, 171737, 2)),
         "coded_encode_3d": measure("encode", (1, 3072, 2, 2048)),
@@ -5211,6 +5454,13 @@ def main():
     }
     floor = measure_launch_floor()
     say(phase="kernels_check", tolerance={"f32": 2e-5, "bf16": 2e-2},
+        reduced={"plain_reps": f"the plain flash versions timed over "
+                               f"{PLAIN_FLASH_REPS} calls after 1, not 25 "
+                               f"after 5, for the script's time (phase "
+                               f"examples)"},
+        seconds_by_part={"checks": t_bwd - t_checks,
+                         "flash_bwd_checks": t_measures - t_bwd,
+                         "timings": time.perf_counter() - t_measures},
         errors=errs, launch_floor=floor, at_main_path_shapes=main_shapes,
         at_other_shapes=other_shapes)
     check_packed_per_leaf_small()
@@ -5218,8 +5468,6 @@ def main():
     counts = run_main_path(args)
     counts["logistic-paper autotuned Trainer.step"] = run_autotune_train(args)
     counts.update(run_elastic(args))
-    launched, launch_report = run_launch(coded_fraction=1.0)   # held to 1.0
-    counts.update(launched)
     serve_path = "qwen3-1.7b CodedServer.step"
     counts[serve_path], n_batches, params = run_serve_path(
         args, reduced={"batches": f"{SERVE_BATCHES}, cut from 3 for the "
@@ -5301,10 +5549,14 @@ def main():
     counts.update(run_train_encdec(args))
     counts.update(run_long_encdec(args))
     say(phase="encdec_phases", seconds=time.perf_counter() - t_encdec)
-    # last: once other processes have used the card, a torch.profiler
-    # session of this process that traces the device alone loses kernel
-    # events (all of them after this phase's ranks), and the phases above
-    # read their idle shares that way
+    # the examples' twins, through their run()
+    counts.update(run_examples(args))
+    # last, launch and dist: once other processes have used the card, a
+    # torch.profiler session of this process that traces the device alone
+    # loses kernel events (all of them after dist's ranks), and the phases
+    # above read their idle shares that way
+    launched, launch_report = run_launch(coded_fraction=1.0)   # held to 1.0
+    counts.update(launched)
     counts.update(run_dist(launch_report))
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
@@ -5382,7 +5634,8 @@ def main():
         out.write_text(json.dumps(
             {**report, "nvidia_smi": smi, "errors": errs,
              "at_other_shapes": other_shapes}, indent=1))
-    say(phase="done", seconds=time.perf_counter() - t_start)
+    say(phase="done", seconds=time.perf_counter() - t_start,
+        seconds_by_phase=SECONDS_BY_PHASE)
     say(**report)
     print(nvidia_smi_line(), flush=True)
     say(ok=True, device={"platform": "gpu",

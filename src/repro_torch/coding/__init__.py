@@ -21,7 +21,8 @@ from .layout import groups_to_leaf, leaf_to_groups
 from .packing import (WIRE_ALIGN, LeafSlot, PackPlan, WireBucket, enc_shape,
                       make_pack_plan, pack_bucket, pack_param_groups,
                       psum_fallback, unpack_bucket, unpack_param_groups)
-from .plan import LeafPlan, coded_fraction, plan_leaf, plan_tree
+from .plan import (LeafPlan, coded_fraction, param_specs, plan_leaf,
+                   plan_tree)
 from .schedules import (SCHEDULES, AllToAllSchedule, GatherSchedule,
                         PsumSchedule, Schedule, get_schedule)
 from .spec import SPEC_FIELDS, SchemeSpec
@@ -33,7 +34,7 @@ __all__ = [
     "BACKEND_NAMES",
     "Schedule", "GatherSchedule", "AllToAllSchedule", "PsumSchedule",
     "SCHEDULES", "get_schedule",
-    "LeafPlan", "plan_leaf", "plan_tree", "coded_fraction",
+    "LeafPlan", "plan_leaf", "plan_tree", "coded_fraction", "param_specs",
     "PackPlan", "WireBucket", "LeafSlot", "WIRE_ALIGN",
     "make_pack_plan", "pack_bucket", "unpack_bucket", "psum_fallback",
     "pack_param_groups", "unpack_param_groups", "enc_shape",

@@ -83,11 +83,13 @@ class Codec:
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # ---- planning
-    def plan(self, tree: Mapping[str, Any]) -> dict[str, LeafPlan]:
+    def plan(self, tree: Mapping[str, Any],
+             specs: Mapping[str, Any] | None = None) -> dict[str, LeafPlan]:
         """Choose every leaf's grouping dimension (``plan_tree``), honouring
-        the schedule's extra divisibility (a2a slices encodings n ways)."""
+        the schedule's extra divisibility (a2a slices encodings n ways) and
+        the model-axis dims of ``specs`` (``param_specs``)."""
         return plan_tree(tree, self.code.m,
-                         self.schedule.n_split(self.code.n))
+                         self.schedule.n_split(self.code.n), specs)
 
     def coded_fraction(self, tree, plans) -> float:
         """Fraction of gradient elements covered by the code (rest -> psum)."""

@@ -191,7 +191,10 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
 
     codec = spec.make_codec(code, dev)
     names = list(params_like)
-    plans = codec.plan(params_like)
+    # a model's leaves skip the dims the reference's layout puts on its
+    # model axis, as the reference's step does at any model-axis size
+    specs = coding.param_specs(params_like) if cfg is not None else None
+    plans = codec.plan(params_like, specs)
     coded_frac = codec.coded_fraction(params_like, plans)
     # static layout of every coded leaf's encoding into bucketed 128-aligned
     # flat buffers; computed once here, the step then issues one collective

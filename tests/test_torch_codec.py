@@ -8,6 +8,7 @@ The reference side runs as its own tests run it on the CPU: a ``shard_map``
 over the forced host devices of ``tests/conftest.py``.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ import repro.core as jcore
 import repro_torch.coding as tc
 import repro_torch.core as tcore
 from repro.compat import make_mesh, shard_map
+from repro_torch import convert
 from repro_torch.comm import make_local_comm
 
 torch.set_num_threads(1)
@@ -57,6 +59,71 @@ def test_plan_tree_equals_reference(shapes, n_split):
     for k in jp:
         assert dataclasses.asdict(jp[k]) == dataclasses.asdict(tp[k])
     assert jc.coded_fraction(jt, jp) == tc.coded_fraction(tt, tp)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_trees(name, reduced):
+    """A config's parameter shapes on both sides, and the reference's
+    PartitionSpecs at a model axis of 1, flattened to the port's keys."""
+    from repro.configs import get_config as jget_config
+    from repro.models import api as japi
+    from repro.train import sharding
+    from repro_torch.configs import get_config as tget_config
+    from repro_torch.models import api as tapi
+    jcfg, tcfg = jget_config(name), tget_config(name)
+    if reduced:
+        jcfg, tcfg = jcfg.reduced(), tcfg.reduced()
+    jt = jax.eval_shape(lambda: japi.init(jax.random.PRNGKey(0), jcfg))
+    jspecs = sharding.param_specs(jt, 1)
+    flat = convert.flatten(jax.tree.map(
+        tuple, jspecs, is_leaf=lambda v: isinstance(v, P)))
+    return jt, jspecs, flat, tapi.init(tcfg, "meta")
+
+
+def _config_names():
+    from repro_torch.configs import list_configs
+    return list(list_configs())
+
+
+@pytest.mark.parametrize("reduced", [True, False])
+@pytest.mark.parametrize("name", _config_names())
+def test_param_specs_are_the_references(name, reduced):
+    """The port's copy of the reference's tensor-parallel layout gives every
+    leaf of every config the reference's specs at a model axis of 1."""
+    _, _, want, tt = _model_trees(name, reduced)
+    got = tc.param_specs(tt)
+    assert list(got) == list(want)
+    for k in got:
+        assert got[k] == tuple(want[k]), k
+
+
+@pytest.mark.parametrize("m, n_split", [(1, 1), (2, 1), (3, 1), (2, N)])
+@pytest.mark.parametrize("name", _config_names())
+def test_model_plans_are_the_references(name, m, n_split):
+    """With the specs, the port groups every leaf of every model on the dim
+    the reference's step groups it on: the dims the reference shards over
+    its model axis (d_ff, vocab, heads) are skipped at a model axis of 1
+    too, so a partial decode pairs the same coordinates on both sides."""
+    for reduced in (True, False):
+        jt, jspecs, _, tt = _model_trees(name, reduced)
+        jp = convert.flatten(jc.plan_tree(jt, jspecs, m, n_split))
+        tp = tc.plan_tree(tt, m, n_split, tc.param_specs(tt))
+        assert list(jp) == list(tp)
+        for k in tp:
+            assert dataclasses.asdict(jp[k]) == dataclasses.asdict(tp[k]), k
+        assert jc.coded_fraction(jt, jc.plan_tree(jt, jspecs, m, n_split)) \
+            == tc.coded_fraction(tt, tp)
+
+
+def test_rule_is_the_references_copy():
+    """The port's ``_rule`` is the reference's, statement for statement."""
+    import ast
+    import inspect
+    import repro.train.sharding as jsharding
+    import repro_torch.coding.plan as tplan
+    dump = lambda f: ast.dump(ast.parse(inspect.getsource(f)))
+    assert dump(tplan._rule) == dump(jsharding._rule)
+    assert tplan._STACKS == jsharding._STACKS
 
 
 @pytest.mark.parametrize("wire", ["float32", "bfloat16"])

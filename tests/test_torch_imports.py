@@ -144,18 +144,50 @@ def test_encdec_imports_with_jax_absent():
 
 def test_no_source_line_imports_jax_or_the_reference():
     """Neither a statement nor a doctest line (``>>> import`` / ``>>>
-    from``) imports JAX or the reference."""
+    from``) of the package or of the examples' twins
+    (``examples/*_torch.py``) imports JAX or the reference; nor does a
+    twin import ``benchmarks``."""
     root = pathlib.Path(repro_torch.__file__).parent
-    for p in root.rglob("*.py"):
+    forbidden = ("import jax", "from jax", "import repro ", "import repro.",
+                 "from repro ", "from repro.")
+    twins = sorted((SRC.parent / "examples").glob("*_torch.py"))
+    assert [p.name for p in twins] == [
+        "logistic_amazon_torch.py", "quickstart_torch.py",
+        "serve_batched_torch.py", "train_lm_coded_torch.py"]
+    files = [(p, forbidden) for p in root.rglob("*.py")] + [
+        (p, forbidden + ("import benchmarks", "from benchmarks"))
+        for p in twins]
+    for p, banned in files:
         for ln in p.read_text().splitlines():
             s = ln.strip()
             if s.startswith((">>> import ", ">>> from ")):
                 s = s[len(">>> "):]
             if s.startswith(("import ", "from ")):
-                assert not s.startswith(("import jax", "from jax",
-                                         "import repro ", "import repro.",
-                                         "from repro ", "from repro.")), \
-                    f"{p}: {s}"
+                assert not s.startswith(banned), f"{p}: {s}"
+
+
+def test_example_twins_import_with_jax_and_the_reference_absent():
+    """``jax``, the reference and ``benchmarks`` made unimportable: each
+    twin of ``examples/`` imports and has its ``run`` and ``main``."""
+    code = textwrap.dedent("""
+        import importlib.util, pathlib, sys
+        for name in ("jax", "repro", "benchmarks"):
+            sys.modules[name] = None
+        for p in sorted(pathlib.Path(sys.argv[1]).glob("*_torch.py")):
+            spec = importlib.util.spec_from_file_location(p.stem, p)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            assert callable(mod.run) and callable(mod.main)
+            print(p.stem)
+    """)
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(SRC.parent / "examples")], text=True,
+                         capture_output=True,
+                         env={"PYTHONPATH": str(SRC), "PATH": ""})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["logistic_amazon_torch", "quickstart_torch",
+                                  "serve_batched_torch",
+                                  "train_lm_coded_torch"]
 
 
 def _entry_points():
