@@ -357,7 +357,17 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            uninterrupted and 4 with a snapshot every 2 (rank 0 alone
            saves); a fresh group of 2 ranks resumes at step 4 and ends at
            6 with the state of both uninterrupted runs and of the single
-           process, bitwise
+           process, bitwise.  (e) on the same group, the elastic phase's
+           (a) and (c) over a ``DistComm`` of 8 workers, ``ElasticTrainer``
+           re-splitting the workers at each resize (blocks of 4 and 4 at 8,
+           3 and 4 at 7): each rank's ladder log, each step's loss and
+           grad_norm and its state digest bitwise the elastic phase's, each
+           rank launching its own workers' encodes and every decode.  (f)
+           on the same group, ``BatchedEngine.generate`` on (c)'s weights
+           with the generate phase's 4 prompts of 4096 tokens, 2 a rank
+           (``rows_per_rank``): every rank's tokens exactly the generate
+           phase's, its rows' prefill logits within GEN_TOL of it, 28 flash
+           launches a rank in the prefill on its own rows
 
 The kernel checks also hold ``flash_attention`` (tensor cores: 3xTF32 for
 f32, one bf16 pass for bf16) against its plain version (the reference's
@@ -594,6 +604,10 @@ ENCDEC_LONG_GEN_CHECKED = (0, ENCDEC_LONG_GEN_NEW - 1)
 PLAIN_FLASH_REPS = 5           # timed calls of a plain flash version (25
 #                                until the examples phase came in)
 RUN_LAUNCHES = 64              # back-to-back launches of one timed run
+KERNELS_CHECK_CUT = (
+    "the timed operands drawn on the card from a seeded CUDA generator, "
+    "not on the host and copied, for the script's time (phase dist parts "
+    "(e) and (f)); the same shapes, copies and calls")
 HOST_CALLS = 200               # calls of one host-cost measurement
 
 torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in full f32
@@ -1509,12 +1523,11 @@ def _paths_since(before, prefix):
             for p in ("vector", "scalar")}
 
 
-def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False,
-            device_draw=False):
+def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False):
     """ms / plain_ms / library_ms / bound_ms of one kernel at one shape
     (``scalar``: every operand one element off an aligned base, the coding
-    kernels' scalar path; ``device_draw``: the operands drawn on the card,
-    for the GB-sized ones).
+    kernels' scalar path).  The operands are drawn on the card from a
+    seeded generator (KERNELS_CHECK_CUT).
 
     ``bound_ms`` takes the bytes from device memory, so the three times are
     read on inputs that are not in the L2 cache: each call gets the next of
@@ -1522,7 +1535,7 @@ def measure(kind, shape, m=None, dtype=F32, out_dtype=F32, scalar=False,
     comes round again.  ``ms_l2_warm`` is the kernel on one copy, every
     call, as the train step finds an operand that was written just before.
     The in-place kernels update their copy on every call."""
-    gen = torch.Generator(device=DEV if device_draw else "cpu").manual_seed(1)
+    gen = torch.Generator(device=DEV).manual_seed(1)
     make, kernel, plain, library, nbytes, flops = _operands(
         kind, shape, m, dtype, out_dtype, gen)
     if scalar:
@@ -2752,6 +2765,8 @@ EL_LR = 1e-6                   # NAG step of the elastic runs
 EL_LADDER = ([(3, "leave", 7), (9, "join", 7)], 14)   # (trace, steps) of (a)
 EL_BURST = ([(3, "preempt", 6), (3, "preempt", 7)], 8)  # of (b)
 EL_PIPE = ([(3, "leave", 7)], 8)                      # of (c)
+EL_POLICY_A = ElasticPolicy(replan_after=1, resize_after=3, prewarm=(7,))
+EL_POLICY_B = ElasticPolicy(replan_after=1, resize_after=0)   # of (b), (c)
 EL_DEGRADED_LOADS = (5, 5, 5, 5, 4, 4, 4, 0)
 EL_BURST_LOADS = (7, 7, 7, 7, 6, 6, 0, 0)
 
@@ -2844,6 +2859,7 @@ def _el_run(tr, batch, steps, label):
         m["wall_ms"] = (time.perf_counter() - t0) * 1e3
         m["scheme"] = _el_label(tr.code)
         m["launches"] = _launch_delta(c0, ops.launch_counts())
+        m["workers"] = [tr.arts.comm.workers.start, tr.arts.comm.workers.stop]
         logs.append(m)
         _record_scheme(schemes, m["scheme"], m["launches"],
                        _path_delta(p0, ops.path_counts()), wall_ms=m["wall_ms"])
@@ -2854,6 +2870,20 @@ def _el_run(tr, batch, steps, label):
     for sc in schemes.values():
         sc["step_ms_median"] = statistics.median(sc["wall_ms"])
     return logs, drained, schemes, counts
+
+
+def _el_record(tr, logs, drained):
+    """What the dist phase's part (e) holds a rank to: the ladder log, each
+    step's loss and grad_norm as bytes, its launches and worker block, the
+    drained update's metrics and the state digest."""
+    from repro_torch.launch.train import state_digest
+    return {"events": tr.elastic_events,
+            "metrics": [[np.float64(m[k]).tobytes().hex()
+                         for k in ("loss", "grad_norm")] for m in logs],
+            "launches": [m["launches"] for m in logs],
+            "workers": [m["workers"] for m in logs],
+            "drained": drained,
+            "digest": state_digest(tr.params, tr.opt_state)}
 
 
 def _el_twin(cfg, batch, trace, policy, steps, tr, what, pipelined=False):
@@ -2910,7 +2940,7 @@ def run_elastic(args):
     # ---- (a) the ladder, counted from 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    policy_a = ElasticPolicy(replan_after=1, resize_after=3, prewarm=(7,))
+    policy_a = EL_POLICY_A
     trace_a, steps_a = EL_LADDER
     ops.reset_launch_counts()
     tr = _el_trainer(cfg, "auto", trace_a, policy_a)
@@ -2920,6 +2950,8 @@ def run_elastic(args):
                                              "logistic-paper ElasticTrainer.step")
     peak_a = torch.cuda.max_memory_allocated()
     counts["logistic-paper ElasticTrainer.step"] = counts_a
+    # held against the dist phase's ranks (part (e))
+    refs = {"a": _el_record(tr, logs_a, None)}
     ev = tr.elastic_events
     want_ev = [{"step": 0, "action": "prewarm", "n": 7},
                {"step": 4, "action": "replan-degraded", "departed": (7,),
@@ -2965,7 +2997,7 @@ def run_elastic(args):
     del tr
 
     # ---- (b) the burst, counted from 0
-    policy_b = ElasticPolicy(replan_after=1, resize_after=0)
+    policy_b = EL_POLICY_B
     trace_b, steps_b = EL_BURST
     tb = _el_trainer(cfg, "auto", trace_b, policy_b)
     logs_b, _, schemes_b, counts_b = _el_run(
@@ -3004,6 +3036,7 @@ def run_elastic(args):
     logs_c, drained, schemes_c, counts_c = _el_run(
         tc_, batch, steps_c, "logistic-paper pipelined ElasticTrainer.step")
     counts["logistic-paper pipelined ElasticTrainer.step"] = counts_c
+    refs["c"] = _el_record(tc_, logs_c, drained)
     swaps = [(t, dl) for t, dl in enumerate(tc_.ladder_launches) if dl]
     if swaps != [(4, {"coded_decode_apply": 1})]:
         fail(f"elastic (c): the ladder launched {swaps}; the re-plan's drain "
@@ -3084,7 +3117,7 @@ def run_elastic(args):
         global_batch=EL_BATCH, optimizer="nag", lr=EL_LR, schedule="gather",
         packed=True, wire="float32", **out, decode_2d_by_cluster_size=decode_times,
         seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
-    return counts
+    return counts, refs
 
 
 EX_LOGISTIC = dict(samples=512, iters=10, n=8)   # logistic_amazon at l = 343474
@@ -3425,9 +3458,10 @@ def _dist_rank(rank, nproc, device, jobs, ckpt_dir):
     imports this script as a module first): each of ``jobs`` over a
     ``DistComm`` whose collectives ``_time_collectives`` times, with its
     kernel launches and peak memory counted from 0 and the replicas' state
-    digests compared after it; then part (c), the coded server, and part
-    (d), the autotuned trainer and the first checkpointed runs into
-    ``ckpt_dir``.  Returns the jobs' reports and the parts'."""
+    digests compared after it; then part (c), the coded server, part (f),
+    generation on (c)'s weights, part (d), the autotuned trainer and the
+    first checkpointed runs into ``ckpt_dir``, and part (e), the elastic
+    trainer.  Returns the jobs' reports and the parts'."""
     from repro_torch.comm import make_dist_comm
     from repro_torch.launch import train as launch_train
     reports = []
@@ -3446,14 +3480,20 @@ def _dist_rank(rank, nproc, device, jobs, ckpt_dir):
         torch.cuda.empty_cache()
     comm = make_dist_comm(SERVE_CODE[0], device=device)
     seconds = _time_collectives(comm)
-    serve = _dist_serve(device, comm)
+    params = _serve_params(device)
+    serve = _dist_serve(device, comm, params)
     serve.update(rank=rank, collective_s=seconds[1:])
+    generate = _dist_generate(device, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
     comm = make_dist_comm(AT_CODE[0], device=device)
     tuned = _dist_tuned(device, comm)
     ckpt = {"uninterrupted": _dist_ckpt(device, comm, CKPT_STEPS),
             "cut": _dist_ckpt(device, comm, DIST_CKPT_CUT, ckpt_dir)}
+    elastic = _dist_elastic(device)
     return {"jobs": reports, "serve": serve, "tuned": tuned, "ckpt": ckpt,
-            "rank": rank}
+            "elastic": elastic, "generate": generate, "rank": rank}
 
 
 def _dist_resume_rank(rank, nproc, device, ckpt_dir):
@@ -3467,19 +3507,27 @@ def _dist_resume_rank(rank, nproc, device, ckpt_dir):
     return out
 
 
-def _dist_serve(device, comm=None):
+def _serve_params(device):
+    """qwen3-1.7b's weights at full width and depth, drawn on ``device``
+    from SEED as the serve phase draws them."""
+    return model_api.init(get_config("qwen3-1.7b"), device,
+                          torch.Generator(device=device).manual_seed(SEED))
+
+
+def _dist_serve(device, comm=None, params=None):
     """Part (c) in this process (``comm`` None: ``LocalComm``) or in a rank:
-    ``CodedServer`` on ``qwen3-1.7b`` at full width and depth (random
-    weights from SEED), code SERVE_CODE, one 4096-token prompt a subset, a
-    batch for each of DIST_SERVE_STRAGGLERS; launch counts set to 0 just
-    before the first batch and read after each.  Returns each batch's
-    outputs, walls, launches and collectives, and the peak memory."""
+    ``CodedServer`` on ``qwen3-1.7b`` at full width and depth (``params``,
+    default ``_serve_params``), code SERVE_CODE, one 4096-token prompt a
+    subset, a batch for each of DIST_SERVE_STRAGGLERS; launch counts set to
+    0 just before the first batch and read after each.  Returns each
+    batch's outputs, walls, launches and collectives, and the peak
+    memory."""
     cfg = get_config("qwen3-1.7b")
     code = make_code(*SERVE_CODE)
     k = code.num_subsets
     t0 = time.perf_counter()
-    params = model_api.init(cfg, device,
-                            torch.Generator(device=device).manual_seed(SEED))
+    if params is None:
+        params = _serve_params(device)
     requests = _requests(np.random.default_rng(SEED), cfg,
                          len(DIST_SERVE_STRAGGLERS) * k)
     srv = CodedServer(cfg, code, params, batch_per_subset=1,
@@ -3514,6 +3562,62 @@ def _dist_serve(device, comm=None):
     del srv, params
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def _dist_generate(device, params):
+    """Part (f), in a rank: ``BatchedEngine.generate`` on qwen3-1.7b at full
+    width and depth (``params``: part (c)'s weights) with the generate
+    phase's prompts over a ``DistComm`` of the group's ranks, counted as
+    ``_generate_counted`` counts the generate phase (28 flash launches in
+    the prefill, on this rank's rows).  Returns the run's record, the
+    engine's split and this rank's rows of the prefill logits."""
+    from repro_torch.comm import make_dist_comm
+    cfg = get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    eng = BatchedEngine(cfg, params, batch=GEN_BATCH,
+                        seq_len=GEN_PROMPT + GEN_NEW, device=device,
+                        comm=make_dist_comm(DIST_NPROC, device=device))
+    run, kept = _generate_counted("dist (f)", eng, _gen_prompts(cfg),
+                                  GEN_NEW, keep=(-1,))
+    run.pop("median_ms")
+    return {**run, "prefill_logits": kept[-1].cpu().numpy(),
+            "rows_per_rank": eng.rows_per_rank,
+            "rows": [eng.rows.start, eng.rows.stop],
+            "gather_bytes": dict(eng.group.bytes),
+            "seconds": time.perf_counter() - t0}
+
+
+def _dist_elastic(device):
+    """Part (e), in a rank: the elastic phase's (a), the ladder, and (c),
+    the fused pipelined re-plan with an update in flight, over a
+    ``DistComm`` of EL_CODE's 8 workers (a resize re-splits them over the
+    group), counted from 0 each.  Returns what ``_el_record`` keeps, with
+    each run's launches, resizes and wall."""
+    from repro_torch.comm import make_dist_comm
+    cfg = get_config("logistic-paper")
+    rng = np.random.default_rng(SEED)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             make_synthetic_batch(rng, cfg, EL_BATCH).items()}
+    out = {}
+    for part, (trace, steps), policy, pipelined in (
+            ("a", EL_LADDER, EL_POLICY_A, False),
+            ("c", EL_PIPE, EL_POLICY_B, True)):
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        tr = _el_trainer(cfg, "auto", trace, policy, pipelined=pipelined,
+                         device=device,
+                         comm=make_dist_comm(EL_CODE[0], device=device))
+        logs, drained, schemes, counts = _el_run(
+            tr, batch, steps, f"dist (e{part}) ElasticTrainer.step")
+        out[part] = {**_el_record(tr, logs, drained), "launches_run": counts,
+                     "paths": ops.path_counts(),
+                     "backend": tr.arts.codec.backend.name,
+                     "resizes": tr.resizes, "prewarms": tr.prewarms,
+                     "step_ms_median": {k: v["step_ms_median"]
+                                        for k, v in schemes.items()},
+                     "seconds": time.perf_counter() - t0}
+        del tr
     return out
 
 
@@ -3647,7 +3751,7 @@ def _dist_check_launches(what, ranks, want, counts, label):
         counts[f"{label} rank {rep['rank']}"] = rep["launches"]
 
 
-def run_dist(launch_report):
+def run_dist(launch_report, elastic_ref, generate_ref):
     """The coded train step across processes, on the one card, each rank
     held bitwise against the single-process run: parameters and optimizer
     state by digest, each step's loss and grad_norm, each step's
@@ -3664,7 +3768,11 @@ def run_dist(launch_report):
     same group against the single-process server (``_dist_serve``); (d)
     the autotuned and the checkpointed logistic-paper trainers on the same
     group, then a fresh group that resumes the checkpointed run
-    (``_dist_part_d``).  The group (``run_ranks`` with ``_dist_rank``)
+    (``_dist_part_d``); (e) the elastic phase's ladder and pipelined
+    re-plan on the same group against that phase's runs (``elastic_ref``,
+    ``_dist_part_e``); (f) generation on the same group against the
+    generate phase's tokens and prefill logits (``generate_ref``,
+    ``_dist_part_f``).  The group (``run_ranks`` with ``_dist_rank``)
     times its collectives; the launcher's ranks run as a user runs
     them."""
     from repro_torch.launch import ranks as launch_ranks
@@ -3770,8 +3878,113 @@ def run_dist(launch_report):
                       group_s)
     _dist_part_d(ckpt_single, group, resumed, first_files, counts,
                  {"group_s_all_parts": group_s, "resume_group_s": resume_s})
+    _dist_part_e(elastic_ref, [r["elastic"] for r in group], counts, group_s)
+    _dist_part_f(generate_ref, [r["generate"] for r in group], counts,
+                 group_s)
     say(phase="dist", part="done", seconds=time.perf_counter() - t_phase)
     return counts
+
+
+def _dist_part_e(refs, ranks, counts, group_s):
+    """Part (e): each rank's ladder log, each step's loss and grad_norm,
+    drained update and state digest bitwise the elastic phase's runs (a)
+    and (c); each step ran on the rank's block of that step's workers and
+    launched that block's share of the encodes and every decode and fused
+    decode-apply."""
+    out = {}
+    for part, label in (("a", "logistic-paper ElasticTrainer.step"),
+                        ("c", "logistic-paper pipelined ElasticTrainer.step")):
+        ref = refs[part]
+        for r, rep in enumerate(ranks):
+            got = rep[part]
+            if got["backend"] != "hopper":
+                fail(f"dist (e{part}): rank {r} ran backend {got['backend']!r}")
+            for key in ("events", "metrics", "drained", "digest"):
+                if got[key] != ref[key]:
+                    fail(f"dist (e{part}): rank {r}'s {key} {got[key]} "
+                         f"against the elastic phase's {ref[key]}")
+            for t, (lo_hi, whole, got_l, want_l) in enumerate(zip(
+                    got["workers"], ref["workers"], got["launches"],
+                    ref["launches"], strict=True)):
+                n = whole[1]
+                w = len(range(r * n // DIST_NPROC, (r + 1) * n // DIST_NPROC))
+                want = {k: v * w // n if k.startswith("coded_encode") else v
+                        for k, v in want_l.items()}
+                if lo_hi != [r * n // DIST_NPROC, (r + 1) * n // DIST_NPROC] \
+                        or got_l != want:
+                    fail(f"dist (e{part}): rank {r} step {t} on workers "
+                         f"{lo_hi} of {n} launched {got_l}, expected {want}")
+            counts[f"{label} on {DIST_NPROC} ranks rank {r}"] = got["launches_run"]
+        blocks = sorted({tuple(tuple(rep[part]["workers"][t])
+                               for rep in ranks)
+                         for t in range(len(ref["workers"]))})
+        out[part] = {
+            "events": [e["action"] for e in ref["events"]],
+            "steps": len(ref["metrics"]), "bitwise": True,
+            "blocks_by_rank": blocks,
+            "launches_by_rank": [{k: v for k, v in rep[part]["launches_run"]
+                                  .items() if v} for rep in ranks],
+            "paths_by_rank": [{k: v for k, v in rep[part]["paths"].items()
+                               if any(v.values())} for rep in ranks],
+            "step_ms_median_by_scheme_and_rank": [rep[part]["step_ms_median"]
+                                                  for rep in ranks],
+            "resizes_ms_by_rank": [[x["ms"] for x in rep[part]["resizes"]]
+                                   for rep in ranks],
+            "prewarms_ms_by_rank": [[x["ms"] for x in rep[part]["prewarms"]]
+                                    for rep in ranks],
+            "seconds_by_rank": [rep[part]["seconds"] for rep in ranks]}
+    say(phase="dist", part="e", model="logistic-paper",
+        code=list(EL_CODE), global_batch=EL_BATCH, ladder=out["a"],
+        pipelined=out["c"], group_s_all_parts=group_s,
+        against="the elastic phase's runs (a) and (c), bitwise",
+        nvidia_smi=nvidia_smi_line())
+
+
+def _dist_part_f(ref, ranks, counts, group_s):
+    """Part (f): every rank's tokens exactly the generate phase's, its rows
+    of the prefill logits within GEN_TOL of it (the largest difference
+    printed), 2 rows a rank, the flash forward launched once a layer in
+    each rank's prefill."""
+    cfg = get_config("qwen3-1.7b")
+    per_rank = GEN_BATCH // DIST_NPROC
+    diffs = []
+    for r, rep in enumerate(ranks):
+        if rep["rows_per_rank"] != per_rank or \
+                rep["rows"] != [r * per_rank, (r + 1) * per_rank]:
+            fail(f"dist (f): rank {r} ran rows {rep['rows']}, expected "
+                 f"{per_rank} of them from {r * per_rank}")
+        if not np.array_equal(rep["tokens"], ref["tokens"]):
+            fail(f"dist (f): rank {r}'s tokens differ from the generate "
+                 f"phase's at {np.argwhere(rep['tokens'] != ref['tokens'])[:8]}")
+        want = ref["prefill_logits"][r * per_rank:(r + 1) * per_rank]
+        err = np.abs(rep["prefill_logits"] - want)
+        diffs.append(float(err.max()))
+        if not (err - GEN_TOL * np.abs(want)).max() <= GEN_TOL:
+            fail(f"dist (f): rank {r}'s prefill logits are {diffs[-1]:.3e} "
+                 f"from the generate phase's, past rtol = atol = {GEN_TOL}")
+        if rep["flash_launches_prefill"] != attention_layers(cfg):
+            fail(f"dist (f): rank {r} launched flash "
+                 f"{rep['flash_launches_prefill']} times in its prefill")
+        counts[f"qwen3-1.7b BatchedEngine.generate on {DIST_NPROC} ranks "
+               f"rank {r}"] = rep["launches"]
+    say(phase="dist", part="f", model=cfg.name, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, batch=GEN_BATCH, prompt_len=GEN_PROMPT,
+        max_new=GEN_NEW, rows_per_rank=per_rank,
+        rows_by_rank=[rep["rows"] for rep in ranks],
+        tokens_equal_generate_phase=True,
+        prefill_logits_max_abs_diff_by_rank=diffs, tolerance=GEN_TOL,
+        launches_by_rank=[{k: v for k, v in rep["launches"].items() if v}
+                          for rep in ranks],
+        prefill_s_by_rank=[rep["prefill_s"] for rep in ranks],
+        decode_step_ms_median_by_rank=[
+            rep[f"decode_step_ms_median_2_to_{GEN_NEW - 1}"] for rep in ranks],
+        generate_wall_s_by_rank=[rep["generate_wall_s"] for rep in ranks],
+        seconds_by_rank=[rep["seconds"] for rep in ranks],
+        peak_memory_bytes_by_rank=[rep["peak_memory_bytes"] for rep in ranks],
+        gather_bytes_by_rank=[rep["gather_bytes"] for rep in ranks],
+        group_s_all_parts=group_s,
+        weights="part (c)'s, random from a seed (the serve phase's)",
+        nvidia_smi=nvidia_smi_line())
 
 
 def _dist_serve_check(single, ranks, counts, group_s):
@@ -4168,13 +4381,14 @@ def run_generate_path(args, params):
     cfg = get_config("qwen3-1.7b")
     t_phase = time.perf_counter()
     seq_len = GEN_PROMPT + GEN_NEW
-    prompts = np.random.default_rng(SEED + 11).integers(
-        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
+    prompts = _gen_prompts(cfg)
     eng = BatchedEngine(cfg, params, batch=GEN_BATCH, seq_len=seq_len,
                         device=DEV)
     run, kept = _generate_counted("generate", eng, prompts, GEN_NEW,
-                                  keep=GEN_CHECKED)
+                                  keep=(-1, *GEN_CHECKED))
     tokens = run.pop("tokens")
+    # held against the dist phase's ranks (part (f))
+    ref = {"tokens": tokens, "prefill_logits": kept.pop(-1).cpu().numpy()}
 
     # ---- outside the window: decode logits against the full forward
     errs = {}
@@ -4229,7 +4443,13 @@ def run_generate_path(args, params):
         logits_vs_forward=errs, tolerance=GEN_TOL,
         check_s=check_s, tokens_first_row=tokens[0].tolist(),
         seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi_line())
-    return run["launches"]
+    return run["launches"], ref
+
+
+def _gen_prompts(cfg):
+    """The generate phase's GEN_BATCH prompts of GEN_PROMPT tokens."""
+    return np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab, (GEN_BATCH, GEN_PROMPT), dtype=np.int32)
 
 
 def run_generate_moe(args, params):
@@ -5436,8 +5656,7 @@ def main():
         "coded_encode_3d": [measure("encode", (4, 3072, 2, 2048)),
                             measure("encode", VLM_UNEMBED_ENC),
                             measure("encode", SSM_ENC3D[0]),
-                            measure("encode", HYBRID_ENC3D[0],
-                                    device_draw=True),
+                            measure("encode", HYBRID_ENC3D[0]),
                             measure("encode", HYBRID_ENC3D[1]),
                             measure("encode", ENCDEC_VOCAB_ENC)],
         "coded_decode_2d": [measure("decode", (8, 4194304), m=2),
@@ -5457,7 +5676,8 @@ def main():
         reduced={"plain_reps": f"the plain flash versions timed over "
                                f"{PLAIN_FLASH_REPS} calls after 1, not 25 "
                                f"after 5, for the script's time (phase "
-                               f"examples)"},
+                               f"examples)",
+                 "operands": KERNELS_CHECK_CUT},
         seconds_by_part={"checks": t_bwd - t_checks,
                          "flash_bwd_checks": t_measures - t_bwd,
                          "timings": time.perf_counter() - t_measures},
@@ -5467,7 +5687,8 @@ def main():
 
     counts = run_main_path(args)
     counts["logistic-paper autotuned Trainer.step"] = run_autotune_train(args)
-    counts.update(run_elastic(args))
+    elastic_counts, elastic_ref = run_elastic(args)
+    counts.update(elastic_counts)
     serve_path = "qwen3-1.7b CodedServer.step"
     counts[serve_path], n_batches, params = run_serve_path(
         args, reduced={"batches": f"{SERVE_BATCHES}, cut from 3 for the "
@@ -5475,7 +5696,7 @@ def main():
     counts["qwen3-1.7b autotuned CodedServer.step"] = \
         run_autotune_serve(args, params)
     gen_path = "qwen3-1.7b BatchedEngine.generate"
-    counts[gen_path] = run_generate_path(args, params)
+    counts[gen_path], generate_ref = run_generate_path(args, params)
     del params
     counts["logistic-paper Trainer resumed from a checkpoint"] = \
         run_checkpoint_resume(args)
@@ -5557,7 +5778,7 @@ def main():
     # above read their idle shares that way
     launched, launch_report = run_launch(coded_fraction=1.0)   # held to 1.0
     counts.update(launched)
-    counts.update(run_dist(launch_report))
+    counts.update(run_dist(launch_report, elastic_ref, generate_ref))
     lm_path = "qwen3-1.7b Trainer.step"
     # each kernel's launches are those of the path that runs it: the 2D pair
     # on logistic-paper (one flat leaf), the fused 2D pair on its pipelined

@@ -23,7 +23,7 @@ import dataclasses
 
 import torch
 
-from ..comm import Comm
+from ..comm import Comm, stack_rows
 from .backends import CodecBackend
 from .layout import flatten_rest, groups_to_leaf, unflatten_rest
 from .plan import LeafPlan
@@ -142,8 +142,10 @@ class AllToAllSchedule(Schedule):
         each of its workers p, gather the decoded slices at the wire
         dtype."""
         ex = comm.all_to_all(x)                           # (w, n, c, *rest)
-        dec = torch.stack([_decode_stack(ex[p], W, backend)
-                           for p in range(ex.shape[0])])  # (w, c, m, *rest)
+        dec = stack_rows([_decode_stack(ex[p], W, backend)
+                          for p in range(ex.shape[0])],
+                         (ex.shape[2], W.shape[1], *ex.shape[3:]),
+                         torch.float32, x.device)         # (w, c, m, *rest)
         full = comm.all_gather(dec.to(x.dtype)).to(torch.float32)
         return full.reshape(x.shape[1], *dec.shape[2:])   # (v, m, *rest)
 

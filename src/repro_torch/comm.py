@@ -12,12 +12,15 @@ behind one interface:
   exists once.
 - ``DistComm``: the workers split in contiguous blocks over the ranks of a
   ``torch.distributed`` group (``make_dist_comm``), the counterpart of the
-  reference's mesh execution.  Rank ``r`` computes only its own workers
-  (``Comm.workers``); its per-worker tensors carry those rows only, and the
-  collectives are real ones between processes.  Every result is bitwise
-  the one ``LocalComm`` gives on the same inputs: a gather is a copy, an
-  all-to-all a permutation, and ``psum`` gathers the stack and sums it in
-  ``LocalComm``'s own order (``all_reduce`` would sum in the backend's).
+  reference's mesh execution.  Rank ``r`` of ``P`` computes only its own
+  workers ``[r n // P, (r + 1) n // P)`` (``Comm.workers``), for any ``P``:
+  the blocks differ by at most one worker, and a rank past ``n`` holds
+  none but still takes part in every collective.  Its per-worker tensors
+  carry those rows only, and the collectives are real ones between
+  processes.  Every result is bitwise the one ``LocalComm`` gives on the
+  same inputs: a gather is a copy, an all-to-all a permutation, and
+  ``psum`` gathers the stack and sums it in ``LocalComm``'s own order
+  (``all_reduce`` would sum in the backend's).
 
 Every collective counts its calls (``Comm.counts``), which is how the tests
 pin "O(1) collectives per wire bucket", and the bytes of its result that
@@ -29,11 +32,14 @@ same on every rank, none of them counted in ``counts`` or ``bytes``:
 ``step_wall`` (the slowest rank's wall, which a tuner records),
 ``check_same`` (a value every rank must hold alike, such as an adopted
 plan or a restored step), ``is_root`` (the one rank that writes a
-snapshot) and ``barrier``.  On ``LocalComm`` each is trivial.  The
+snapshot) and ``barrier``.  On ``LocalComm`` each is trivial.  ``rank``
+and ``world_size`` say where the process stands (0 of 1 on ``LocalComm``):
+``BatchedEngine`` splits its rows by them.  The
 trainer and the server reach ``torch.distributed`` only through these.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -48,6 +54,10 @@ class Comm:
     """Interface of a worker group of ``n`` workers on ``device``, of which
     this process computes ``workers`` (global indices, a contiguous
     ``range``)."""
+
+    #: this process's place in the group of processes
+    rank = 0
+    world_size = 1
 
     def __init__(self, n: int, device: torch.device,
                  workers: range | None = None):
@@ -74,10 +84,12 @@ class Comm:
                              f"{len(self.workers)} (this process's workers "
                              f"of n={self.n}), got shape {tuple(x.shape)}")
 
-    def _count(self, kind: str, result_per_worker: torch.Tensor) -> None:
+    def _count(self, kind: str, out: torch.Tensor) -> None:
+        """Count one call whose result is ``out``, ``(w, ...)`` with a row
+        for each of this process's workers (``w`` may be 0), by the bytes
+        of the row one worker receives."""
         self.counts[kind] += 1
-        self.bytes[kind] += (result_per_worker.numel()
-                             * result_per_worker.element_size())
+        self.bytes[kind] += math.prod(out.shape[1:]) * out.element_size()
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """(w, *s) values of this process's w workers -> the (n, *s) stack
@@ -124,7 +136,7 @@ class LocalComm(Comm):
     def all_gather(self, x):
         self._check(x)
         out = x.contiguous()
-        self._count("all_gather", out)
+        self._count("all_gather", out[None])
         return out
 
     def all_to_all(self, x):
@@ -134,13 +146,13 @@ class LocalComm(Comm):
             raise ValueError(f"all_to_all needs n | length, got {L} % {n}")
         out = (x.reshape(n, n, L // n, *x.shape[2:])
                .transpose(0, 1).contiguous())
-        self._count("all_to_all", out[0])
+        self._count("all_to_all", out)
         return out
 
     def psum(self, x):
         self._check(x)
         out = x.sum(dim=0)
-        self._count("psum", out)
+        self._count("psum", out[None])
         return out
 
 
@@ -154,19 +166,24 @@ def make_local_comm(n: int, device: str | torch.device = "cuda") -> LocalComm:
 class DistComm(Comm):
     """The ``n`` workers split over the ranks of the initialised default
     ``torch.distributed`` group: rank ``r`` of ``P`` computes workers
-    ``[r n/P, (r + 1) n/P)`` (``P`` must divide ``n``).
+    ``[r n // P, (r + 1) n // P)``, for any ``P`` (``block(r)``).  A block
+    may be empty (``P > n``): that rank holds no worker and still takes
+    part in every collective.
 
     The tensors go to the backend as they are, on ``device``: ``gloo`` takes
     CUDA tensors for these collectives and moves them through the host
     itself, ``nccl`` keeps them on the card."""
 
     def __init__(self, n: int, device: torch.device):
-        P, r = dist.get_world_size(), dist.get_rank()
-        _check_split(n, P)
-        w = n // P
-        super().__init__(n, device, workers=range(r * w, (r + 1) * w))
-        self.rank, self.world_size = r, P
+        self.rank, self.world_size = dist.get_rank(), dist.get_world_size()
+        super().__init__(n, device)
+        self.workers = self.block(self.rank)
         self.backend = str(dist.get_backend())
+
+    def block(self, rank: int) -> range:
+        """The workers of rank ``rank``."""
+        return range(rank * self.n // self.world_size,
+                     (rank + 1) * self.n // self.world_size)
 
     @property
     def transport(self) -> str:
@@ -174,15 +191,26 @@ class DistComm(Comm):
         return f"{self.backend}, {self.device.type} tensors handed over as is"
 
     def _gathered(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.empty((self.n, *x.shape[1:]), dtype=x.dtype,
-                          device=x.device)
-        dist.all_gather_into_tensor(out, x.contiguous())
-        return out
+        """The (n, *s) stack of every rank's rows.  Equal blocks go straight
+        into one buffer; uneven ones are padded to the largest block, and
+        the padding rows are dropped after the gather."""
+        P, rest = self.world_size, tuple(x.shape[1:])
+        c = -(-self.n // P)                   # the largest block
+        if c * P == self.n:                   # every block has c rows
+            out = torch.empty((self.n, *rest), dtype=x.dtype, device=x.device)
+            dist.all_gather_into_tensor(out, x.contiguous())
+            return out
+        send = torch.zeros((c, *rest), dtype=x.dtype, device=x.device)
+        send[:x.shape[0]] = x
+        buf = torch.empty((P * c, *rest), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(buf, send)
+        return torch.cat([buf[R * c:R * c + len(self.block(R))]
+                          for R in range(P)])
 
     def all_gather(self, x):
         self._check(x)
         out = self._gathered(x)
-        self._count("all_gather", out)
+        self._count("all_gather", out[None])
         return out
 
     def all_to_all(self, x):
@@ -191,22 +219,28 @@ class DistComm(Comm):
         if L % n:
             raise ValueError(f"all_to_all needs n | length, got {L} % {n}")
         rest = tuple(x.shape[2:])
-        # send[R, a, b] = chunk R w + a of local worker b: block R goes to
-        # rank R, and arrives there as recv[S, a, b] = that chunk of worker
-        # S w + b
-        send = (x.reshape(w, P, w, L // n, *rest).transpose(0, 1)
-                .transpose(1, 2).contiguous())
-        recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send)
-        out = recv.transpose(0, 1).reshape(w, n, L // n, *rest)
-        self._count("all_to_all", out[0])
+        sizes = [len(self.block(R)) for R in range(P)]
+        # send[c, b] = chunk c of local worker b: the chunks of rank R's
+        # workers are one run of rows, w_R * w of them; what arrives from
+        # rank S is recv[a, b'] = chunk workers[a] of S's local worker b'
+        send = (x.reshape(w, n, L // n, *rest).transpose(0, 1).contiguous()
+                .reshape(n * w, L // n, *rest))
+        recv = torch.empty((n * w, L // n, *rest), dtype=x.dtype,
+                           device=x.device)
+        dist.all_to_all_single(recv, send,
+                               output_split_sizes=[w * k for k in sizes],
+                               input_split_sizes=[k * w for k in sizes])
+        parts = recv.split([w * k for k in sizes])
+        out = torch.cat([p.reshape(w, k, L // n, *rest)
+                         for p, k in zip(parts, sizes)], dim=1)
+        self._count("all_to_all", out)
         return out
 
     def psum(self, x):
         self._check(x)
         # LocalComm's operation on the same (n, *s) stack: the same bits
         out = self._gathered(x).sum(dim=0)
-        self._count("psum", out)
+        self._count("psum", out[None])
         return out
 
     @property
@@ -232,30 +266,25 @@ class DistComm(Comm):
         dist.barrier()
 
 
-def refuse_dist(comm: Comm | None, what: str, why: str) -> None:
-    """Raise ``NotImplementedError`` when ``comm`` is a ``DistComm``:
-    ``what`` is not carried across ranks yet, for the reason ``why``
-    (ROADMAP A.8.5 queues it)."""
-    if isinstance(comm, DistComm):
-        raise NotImplementedError(f"{what} under a DistComm: {why} "
-                                  f"(ROADMAP A.8.5)")
+def stack_rows(rows: list, shape: tuple, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    """``torch.stack(rows)``: one value of shape ``shape`` for each of this
+    process's workers, as the ``(w, *shape)`` tensor a collective takes;
+    ``(0, *shape)`` on a rank that holds no worker."""
+    if rows:
+        return torch.stack(rows)
+    return torch.zeros((0, *shape), dtype=dtype, device=device)
 
 
-def _check_split(n: int, world_size: int) -> None:
-    if world_size < 1 or n % world_size:
-        raise ValueError(f"DistComm needs the world size to divide the "
-                         f"worker count: {world_size} ranks do not divide "
-                         f"n={n} workers")
-
-
-def check_group(n: int | None, world_size: int, backend: str,
+def check_group(world_size: int, backend: str,
                 device: torch.device) -> None:
     """Refuse a group this port cannot run, before any process group is
-    made: a world size that does not divide ``n``, ``nccl`` off the card,
-    and ``nccl`` with more ranks than cards (NCCL refuses two ranks on one
-    device; ``gloo`` takes them)."""
-    if n is not None:
-        _check_split(n, world_size)
+    made: a world size below 1, ``nccl`` off the card, and ``nccl`` with
+    more ranks than cards (NCCL refuses two ranks on one device; ``gloo``
+    takes them).  Any world size splits any number of workers."""
+    if world_size < 1:
+        raise ValueError(f"a group needs at least one rank, not "
+                         f"{world_size}")
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError("backend 'nccl' needs a cuda device; use "
@@ -288,13 +317,13 @@ def make_dist_comm(n: int, *, device: str | torch.device = "cuda",
         if backend is not None and backend != have:
             raise ValueError(f"the process group runs {have!r}, not "
                              f"{backend!r}")
-        check_group(n, dist.get_world_size(), have, dev)
+        check_group(dist.get_world_size(), have, dev)
     else:
         backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
         ws = int(world_size if world_size is not None
                  else os.environ.get("WORLD_SIZE", 1))
         r = int(rank if rank is not None else os.environ.get("RANK", 0))
-        check_group(n, ws, backend, dev)
+        check_group(ws, backend, dev)
         dist.init_process_group(backend, init_method=init_method, rank=r,
                                 world_size=ws)
     return DistComm(n, dev)

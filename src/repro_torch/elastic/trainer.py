@@ -25,8 +25,8 @@ degradation, cheapest rung first, as the reference's
    join), :meth:`resize` rebuilds the cluster at the new worker count:
    drain the pipelined update in flight, checkpoint, stash the outgoing
    size's generation ``(comm, artifacts, stepped signatures)``, adopt the
-   target size's (``comm_factory``), and swap in the resized code.  One
-   device holds every worker, so the parameters and optimizer state stay
+   target size's (``comm_factory``), and swap in the resized code.  Every
+   process holds the whole parameters and optimizer state, so they stay
    where they are, bitwise and without a copy.  Returning to a size seen
    before restores its stashed generation and builds nothing;
    :meth:`prewarm` builds a size's artifacts ahead of need, so its first
@@ -36,6 +36,16 @@ Recovery is symmetric: when every departure heals (an explicit rejoin) the
 trainer swaps back to its exact *home* scheme, whose artifacts are still
 cached.  ``elastic_events`` is the reference's decision log, entry for
 entry.
+
+Across ranks (``comm=`` a ``repro_torch.comm.DistComm``): every rank builds
+the same trainer from the same seeds and is given the same churn and
+batches, so it walks the same ladder; a resize re-splits the new worker
+count over the same process group (``make_dist_comm``, blocks of any
+size, empty ones included), and the root rank alone saves the resize's
+checkpoints.  Each step the group checks, before the ladder acts and
+before the step decodes, that every rank made the same decision
+(``Comm.check_same``): ranks that disagree raise, naming it, instead of
+meeting in collectives of other shapes.
 """
 from __future__ import annotations
 
@@ -44,7 +54,7 @@ import functools
 from typing import Any, Callable
 
 from .._device import resolve_device
-from ..comm import Comm, make_local_comm, refuse_dist
+from ..comm import Comm, DistComm, make_dist_comm, make_local_comm
 from ..core import make_code
 from ..core.hetero import HeteroCode, plan_hetero
 from ..train import Trainer
@@ -97,9 +107,12 @@ class ElasticTrainer(Trainer):
     accepts (``None``, an event list, a ``MembershipTrace``, a
     ``PoissonChurn``); ``elastic``: the :class:`ElasticPolicy`;
     ``comm_factory``: ``n -> Comm``, the worker group of a cluster size
-    (default ``make_local_comm(n, device)``, the counterpart of the
-    reference's ``mesh_factory``).  Every other keyword goes to ``Trainer``;
-    ``device`` defaults to the card and raises when there is none.
+    (the counterpart of the reference's ``mesh_factory``; default: one
+    like ``comm``, ``make_dist_comm(n, device=device)`` over the same
+    process group when ``comm`` is a ``DistComm``, else
+    ``make_local_comm(n, device)``).  Every other keyword goes to
+    ``Trainer``; ``device`` defaults to the card and raises when there is
+    none.
     """
 
     def __init__(self, cfg: Any, code, optimizer, *, churn: Any | None = None,
@@ -109,14 +122,13 @@ class ElasticTrainer(Trainer):
         device = resolve_device(trainer_kwargs.pop("device", "cuda"))
         self.churn = churn
         self.elastic = elastic
-        self.comm_factory = (comm_factory if comm_factory is not None
-                             else functools.partial(make_local_comm,
-                                                    device=device))
-        comm = trainer_kwargs.pop("comm", None) or self.comm_factory(code.n)
-        refuse_dist(comm, "ElasticTrainer",
-                    "a resize changes the worker count n, and a group of P "
-                    "ranks splits n workers only when P divides n; "
-                    "re-forming the group at the new n is not written")
+        comm = trainer_kwargs.pop("comm", None)
+        if comm_factory is None:
+            make = (make_dist_comm if isinstance(comm, DistComm)
+                    else make_local_comm)
+            comm_factory = functools.partial(make, device=device)
+        self.comm_factory = comm_factory
+        comm = comm or self.comm_factory(code.n)
         super().__init__(cfg, code, optimizer, device=device, comm=comm,
                          **trainer_kwargs)
         pol = self.elastic
@@ -144,17 +156,19 @@ class ElasticTrainer(Trainer):
 
     # ------------------------------------------------------- Trainer hooks
     def _step_partial(self, stragglers) -> bool:
-        """Rung 1: force partial decode when the budget cannot cover."""
-        if self.partial:
-            return True
-        if (self.elastic.partial_failover
-                and len(stragglers) > self.code.s):
+        """Rung 1: force partial decode when the budget cannot cover.  The
+        ranks agree on the straggler set and the failover first."""
+        stragglers = tuple(int(i) for i in stragglers)
+        failover = (not self.partial and self.elastic.partial_failover
+                    and len(stragglers) > self.code.s)
+        self.comm.check_same(
+            f"the stragglers and the partial failover at step "
+            f"{self._step_count}", repr((stragglers, failover)))
+        if failover:
             self.elastic_events.append(
                 {"step": self._step_count, "action": "partial-failover",
-                 "stragglers": tuple(int(i) for i in stragglers),
-                 "s": self.code.s})
-            return True
-        return False
+                 "stragglers": stragglers, "s": self.code.s})
+        return self.partial or failover
 
     def _departed_workers(self) -> tuple[int, ...]:
         """The tracker's departed set, for the autotuner's ranking."""
@@ -186,35 +200,57 @@ class ElasticTrainer(Trainer):
 
     # ------------------------------------------------------------- ladder
     def _maybe_ladder(self) -> None:
-        """Rung 2/3 decisions for this step (rung 1 lives in the draw)."""
+        """Rung 2/3 for this step (rung 1 lives in the draw): the decision
+        is made, every rank checks that the others made the same, and only
+        then is it carried out."""
+        step = self._step_count
+        decision = self._ladder_decision(step)
+        agreed = None if decision is None else (
+            *decision[:2], getattr(decision[2], "loads", None))
+        self.comm.check_same(f"the elastic ladder's decision at step {step}",
+                             repr(agreed))
+        if decision is None:
+            return
+        action, arg, code = decision
+        if action == "scale-up":
+            self.tracker.pending_joins.clear()
+            self.resize(arg, step=step)
+        elif action == "resize":
+            self.resize(arg, step=step)
+        elif action == "recover-home":
+            # full recovery: every departure healed — swap back to the exact
+            # home scheme (its artifacts are still cached)
+            self._swap_code(self._home_code, self.schedule, self.packed,
+                            self.pipelined)
+            self.elastic_events.append(
+                {"step": step, "action": "recover-home", "n": self.code.n})
+        else:                               # replan-degraded
+            self._swap_code(code, self.schedule, self.packed, False)
+            self.elastic_events.append(
+                {"step": step, "action": "replan-degraded",
+                 "departed": arg, "loads": code.loads, "s": code.s})
+
+    def _ladder_decision(self, step: int) -> tuple | None:
+        """What the ladder does at ``step``, without doing it: ``(action,
+        argument, code)`` or None.  ``scale-up`` and ``resize`` carry the
+        target size, ``replan-degraded`` the departed set and its code."""
         pol = self.elastic
         t = self.tracker
-        step = self._step_count
         if pol.scale_up and t.pending_joins:
             # each pending join is one worker the cluster has no slot for
             # (post-repack indices are positional, so the event's index
             # only signals "new worker", not a target size)
             new_n = t.n + len(t.pending_joins)
             if self._can_resize(new_n):
-                t.pending_joins.clear()
-                self.resize(new_n, step=step)
-                return
+                return "scale-up", new_n, None
         dep = t.departed
         if not dep:
-            if self._degraded:
-                # full recovery: every departure healed — swap back to the
-                # exact home scheme (its artifacts are still cached)
-                self._swap_code(self._home_code, self.schedule, self.packed,
-                                self.pipelined)
-                self.elastic_events.append(
-                    {"step": step, "action": "recover-home",
-                     "n": self.code.n})
-            return
+            return ("recover-home", self._home_code.n, None) \
+                if self._degraded else None
         age = min(t.departed_for(w, step) for w in dep)
         if (pol.resize_after and age >= pol.resize_after
                 and self._can_resize(t.n_alive)):
-            self.resize(t.n_alive, step=step)
-            return
+            return "resize", t.n_alive, None
         # rung 2: with a tuner attached the departed-aware ranking owns
         # this decision (it prices stay-degraded vs resize); without one,
         # re-plan directly once the departure has outlived replan_after.
@@ -224,10 +260,8 @@ class ElasticTrainer(Trainer):
             code = self._degraded_code(dep)
             if (code is not None
                     and self._code_key(code) != self._code_key(self.code)):
-                self._swap_code(code, self.schedule, self.packed, False)
-                self.elastic_events.append(
-                    {"step": step, "action": "replan-degraded",
-                     "departed": dep, "loads": code.loads, "s": code.s})
+                return "replan-degraded", dep, code
+        return None
 
     @property
     def _degraded(self) -> bool:

@@ -73,7 +73,7 @@ def run_ranks(fn: Callable, nproc: int, *, args: tuple = (),
     ``TimeoutError`` past ``timeout`` seconds."""
     dev = resolve_device(device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
-    check_group(None, nproc, backend, dev)
+    check_group(nproc, backend, dev)
     ctx = mp.get_context("spawn")
     out_q = ctx.Queue()
     rdv = pathlib.Path(tempfile.mkdtemp(prefix="repro_torch_ranks_"))

@@ -15,8 +15,9 @@ Flags of the port's own, after the reference's:
 - ``--nproc P`` (default 1) splits the workers over ``P`` ranks
   (``repro_torch.comm.DistComm``), started by ``repro_torch.launch.ranks``
   with a file rendezvous; rank ``r`` runs on ``cuda:{r % cards}`` or on the
-  host, with the caller's thread count, and computes its ``n_data / P``
-  workers' subsets.  Every rank builds the same trainer from the same seeds
+  host, with the caller's thread count, and computes the subsets of its
+  workers ``[r n_data // P, (r + 1) n_data // P)`` (any ``P``: the blocks
+  differ by at most one worker, and a rank past ``n_data`` holds none).  Every rank builds the same trainer from the same seeds
   and applies the same update; after the last step the ranks compare a
   digest of their parameters and optimizer state and raise if any two
   differ.  Rank 0 prints the step lines, the launcher the final line, so
@@ -257,6 +258,14 @@ def make_job(args: argparse.Namespace) -> TrainJob:
                     seq=args.seq)
 
 
+def _block_label(rank: int, n: int, nproc: int) -> str:
+    """Rank ``rank``'s workers of ``n`` over ``nproc`` ranks, as ``DistComm``
+    splits them: ``"a-b"``, ``"a"`` for one, ``"none"`` for an empty
+    block."""
+    lo, hi = rank * n // nproc, (rank + 1) * n // nproc
+    return "none" if hi == lo else f"{lo}" if hi == lo + 1 else f"{lo}-{hi - 1}"
+
+
 def main(argv: list[str] | None = None) -> list[dict]:
     """Parse ``argv`` (default: the command line), train, print the final
     loss line, and return the per-step metrics."""
@@ -275,12 +284,11 @@ def main(argv: list[str] | None = None) -> list[dict]:
     else:
         backend = args.dist_backend or ("nccl" if device.type == "cuda"
                                         else "gloo")
-        check_group(args.n_data, args.nproc, backend, device)
-        w = args.n_data // args.nproc
+        check_group(args.nproc, backend, device)
         print(f"ranks {args.nproc} ({backend}): " + ", ".join(
             f"rank {r} on {rank_device(device, r)} workers "
-            f"{r * w}-{(r + 1) * w - 1}" for r in range(args.nproc)),
-            flush=True)
+            + _block_label(r, args.n_data, args.nproc)
+            for r in range(args.nproc)), flush=True)
         if device.type == "cuda":
             from ..kernels import _build
             _build.build_once()   # one nvcc run for all ranks

@@ -59,7 +59,7 @@ import torch.nn.functional as F
 
 from .. import coding
 from .._device import resolve_device
-from ..comm import Comm, make_local_comm
+from ..comm import Comm, make_local_comm, stack_rows
 from ..core import GradCode
 from ..models import api as model_api
 from ..models import common as cm
@@ -182,11 +182,13 @@ def make_coded_forward(cfg, code: GradCode, *,
                     ss_acc = ss_acc + rho[i, slot] * torch.sum(flat * flat)
             rows.append(codec.to_wire(buf, mask[i]))
             ss_rows.append(ss_acc)
-        dec = codec.decode_packed(torch.stack(rows), W, comm)   # (L, m)
+        dec = codec.decode_packed(
+            stack_rows(rows, (L,), codec.wire_dtype, dev), W, comm)  # (L, m)
         out = dec[:k * q].reshape(k, q * m)[:, :s_out].reshape(k * b,
                                                               *out_shape)
         if partial:
-            return out, err_factor * torch.sqrt(comm.psum(torch.stack(ss_rows)))
+            return out, err_factor * torch.sqrt(
+                comm.psum(stack_rows(ss_rows, (), f32, dev)))
         return out
 
     def body_psum(params, batch, W, mask, rho, err_factor=None):
@@ -201,7 +203,8 @@ def make_coded_forward(cfg, code: GradCode, *,
                 off = int(blk[i, slot]) * s_out
                 buf[off:off + s_out] += y.reshape(-1) * rho[i, slot]
             rows.append(buf)
-        out = comm.psum(torch.stack(rows)).reshape(k * b, *out_shape)
+        out = comm.psum(stack_rows(rows, (k * s_out,), f32, dev)).reshape(
+            k * b, *out_shape)
         if partial:
             return out, torch.zeros((), dtype=f32, device=dev)  # rho drops exactly
         return out

@@ -18,8 +18,17 @@ straggler source, every served batch feeds a ``StepRecord`` to a
 family by modeled p99 under the policy's arrival process; an adopted plan
 swaps code and schedule through the per-scheme artifact cache.
 
-Across ranks (``comm=`` a ``repro_torch.comm.DistComm``): every rank is
-given the same requests and the same seeded straggler source, so the
+Across ranks, ``BatchedEngine(..., comm=)`` follows the reference's rule
+for its mesh's data axes: with ``P`` ranks, the ``B`` rows go over the
+ranks in contiguous blocks of ``B / P`` when ``P`` divides ``B`` (and
+``B >= P``), and every rank runs the whole batch otherwise.  An MoE model
+always runs whole: its experts' capacity counts the tokens of the whole
+batch, so its rows are not independent.  ``rows_per_rank`` says which case
+the engine took.
+
+A ``CodedServer`` across ranks (``comm=`` a ``repro_torch.comm.DistComm``):
+every rank is given the same requests and the same seeded straggler
+source, so the
 host-side draws, the float64 solve for ``W`` and the failed rows are alike
 on every rank; each rank runs its own replicas' forwards and ends with the
 whole decoded batch.  The tuner records the slowest rank's wall
@@ -37,7 +46,7 @@ import torch
 
 from .. import coding
 from .._device import resolve_device
-from ..comm import Comm
+from ..comm import Comm, DistComm
 from ..core import make_code
 from ..data import CodedBatcher
 from ..models import api as model_api
@@ -89,17 +98,33 @@ def build_serve_artifacts(cfg, *, batch: int, seq_len: int, window: int = 0,
 
 
 class BatchedEngine:
-    """Batched greedy generation on one device: fixed batch slots, one
-    prefill, then one decode step a token.  Where the reference takes a
-    mesh, the port takes ``device`` (default: the card; raises when there is
-    none); ``params`` are moved there."""
+    """Batched greedy generation: fixed batch slots, one prefill, then one
+    decode step a token.  Where the reference takes a mesh, the port takes
+    ``device`` (default: the card; raises when there is none; ``params``
+    are moved there) and optionally ``comm``, whose ranks share the batch
+    (the module's docstring has the rule).
+
+    ``rows_per_rank`` is the rows this process prefills and decodes, and
+    ``rows`` which of the batch's they are: ``B / P`` of them when the rows
+    are split over ``P`` ranks, all ``B`` when every rank runs the whole
+    batch (one process, ``P`` not dividing ``B``, or an MoE model)."""
 
     def __init__(self, cfg, params: dict, *, batch: int, seq_len: int,
-                 window: int = 0, device: str | torch.device = "cuda"):
+                 window: int = 0, device: str | torch.device = "cuda",
+                 comm: Comm | None = None):
+        P = 1 if comm is None else comm.world_size
+        split = (P > 1 and batch % P == 0 and batch >= P
+                 and cfg.family != "moe")
+        self.rows_per_rank = batch // P if split else batch
+        start = comm.rank * self.rows_per_rank if split else 0
+        self.rows = range(start, start + self.rows_per_rank)
         self.cfg = cfg
-        self.arts = build_serve_artifacts(cfg, batch=batch, seq_len=seq_len,
-                                          window=window, device=device)
+        self.arts = build_serve_artifacts(cfg, batch=self.rows_per_rank,
+                                          seq_len=seq_len, window=window,
+                                          device=device)
         self.device = self.arts.device
+        # the tokens' gather: one worker a rank
+        self.group = DistComm(P, self.device) if split else None
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.batch = batch
         self.seq_len = seq_len
@@ -121,14 +146,18 @@ class BatchedEngine:
         Tokens and positions stay on the device until the end (no host
         sync a token).  ``on_logits(t, logits)``, when given, sees the
         prefill's logits as ``t = -1`` and decode step ``t``'s (which
-        consumed token ``t``) as ``t``, each a (batch, vocab) device
-        tensor, as soon as the step is enqueued.
+        consumed token ``t``) as ``t``, each a (rows_per_rank, vocab)
+        device tensor of this process's rows, as soon as the step is
+        enqueued.  Split over ranks, each rank generates its rows and the
+        ranks gather the tokens: every rank returns all ``B`` rows.
         """
-        prompts = torch.as_tensor(np.asarray(prompts)).to(self.device)
+        prompts = np.asarray(prompts)
+        if prompts.shape[0] != self.batch:
+            raise ValueError(f"{prompts.shape[0]} prompts for an engine of "
+                             f"{self.batch} slots")
+        prompts = torch.as_tensor(
+            prompts[self.rows.start:self.rows.stop]).to(self.device)
         B, P = prompts.shape
-        if B != self.batch:
-            raise ValueError(f"{B} prompts for an engine of {self.batch} "
-                             f"slots")
         batch = {"tokens": prompts}
         patches = 0
         if self.cfg.family == "vlm":
@@ -161,8 +190,12 @@ class BatchedEngine:
                 on_logits(t, logits)
             tok = torch.argmax(logits, -1).to(torch.int32)
         if not outs:
-            return np.zeros((B, 0), np.int32)
-        return torch.stack(outs, dim=1).cpu().numpy()
+            return np.zeros((self.batch, 0), np.int32)
+        tokens = torch.stack(outs, dim=1)
+        if self.group is not None:
+            tokens = self.group.all_gather(tokens[None]).reshape(
+                self.batch, max_new)
+        return tokens.cpu().numpy()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -58,7 +58,7 @@ import torch
 
 from .. import coding
 from .._device import resolve_device
-from ..comm import Comm, make_local_comm
+from ..comm import Comm, make_local_comm, stack_rows
 from ..core import GradCode
 from ..models import api as model_api
 from ..optim import Optimizer
@@ -226,12 +226,12 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
     def _finish(grads, loss_rows, mask, gss_rows, ef, coded):
         grads, gnorm = _scaled_with_norm(grads)
         # responders' view, normalised by the subset count (= n uniformly)
-        loss_global = (comm.psum(torch.stack(loss_rows) * comm.rows(mask))
-                       / k_subsets)
+        loss_global = (comm.psum(stack_rows(loss_rows, (), f32, dev)
+                                 * comm.rows(mask)) / k_subsets)
         metrics = {"loss": loss_global, "grad_norm": gnorm}
         if partial and coded:
             metrics["decode_err_bound"] = ef * torch.sqrt(
-                comm.psum(torch.stack(gss_rows)))
+                comm.psum(stack_rows(gss_rows, (), f32, dev)))
         elif partial:
             # the psum baseline carries no code: rho already drops uncovered
             # subsets exactly, so the certificate term is identically zero
@@ -284,7 +284,13 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
             gss_rows.append(gss_acc)
 
         def stacked(t):
-            return torch.stack([we[t] for we in worker_enc])
+            if worker_enc:
+                return torch.stack([we[t] for we in worker_enc])
+            # a rank with no worker: no rows of what a worker would send
+            z = codec.encoding_zero(params[names[t]], flat_plans[t])
+            if flat_plans[t].coded:
+                z = codec.to_wire(z, mask[0])
+            return z[None][:0]
 
         flat_grads: list = [None] * len(names)
         if pplan is not None:
@@ -326,7 +332,8 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
                 del g              # one subset's gradients alive at a time
             worker_acc.append(acc)
             loss_rows.append(loss_acc)
-        grads = {k: comm.psum(torch.stack([wa[t] for wa in worker_acc]))
+        grads = {k: comm.psum(stack_rows([wa[t] for wa in worker_acc],
+                                         tuple(params[k].shape), f32, dev))
                  for t, k in enumerate(names)}
         return _finish(grads, loss_rows, mask, None, err_factor, coded=False)
 
@@ -395,9 +402,11 @@ def make_coded_train_step(cfg, code: GradCode, optimizer: Optimizer, *,
                 del accs
                 small_rows.append(smalls)
                 loss_rows.append(loss_acc)
-            cols = [torch.stack([r[q] for r in small_rows])
-                    .reshape(len(workers), -1) for q in range(len(small_ix))]
-            loss_col = (torch.stack(loss_rows) * comm.rows(mask))[:, None]
+            cols = [stack_rows([r[q] for r in small_rows], sh, f32, dev)
+                    .reshape(len(workers), -1)
+                    for q, sh in enumerate(small_shapes)]
+            loss_col = (stack_rows(loss_rows, (), f32, dev)
+                        * comm.rows(mask))[:, None]
             side = torch.cat(cols + [loss_col], dim=1)
             return (*wires, side)
 

@@ -40,7 +40,8 @@ its own workers' subsets and applies the same update, so the parameters
 stay replicated.  The decisions that would otherwise differ by rank are
 made once for all of them: the tuner records the slowest rank's wall
 (``Comm.step_wall``), so every rank adopts the same plan at the same step,
-and the group checks after each step that it did (``Comm.check_same``);
+and the group checks after each step, before adopting it, that every rank
+holds that plan (``Comm.check_same``);
 only the root rank writes a snapshot, and every rank waits for it
 (``Comm.barrier``); every rank restores the newest snapshot, and the group
 checks that they restored the same step.
@@ -461,11 +462,13 @@ class Trainer:
                 self._tuner.record(rec)
                 new_plan = self._tuner.maybe_replan(
                     self._step_count, departed=self._departed_workers())
+                # before anything changes, so that ranks that disagree
+                # raise instead of meeting in mismatched collectives
+                arts.comm.check_same(
+                    f"the scheme plan after step {self._step_count}",
+                    repr(new_plan))
                 if new_plan is not None:
                     self._apply_plan(new_plan)
-                arts.comm.check_same(
-                    f"the scheme after step {self._step_count}",
-                    repr(self._scheme_sig))
             else:
                 self.telemetry.append(rec)
         self._step_count += 1

@@ -17,14 +17,17 @@ test), each computing only its own workers.
 - The 2-rank reduced-qwen3 3-step trajectory against the reference's
   ``Trainer`` on 8 forced host devices, from ``convert.py``'s parameters
   (``lm_train_cases.py``'s run and ``TRAJ_TOL``).
-- What is refused: a world size that does not divide ``n``, ``nccl`` with
-  two ranks on one card, and ``ElasticTrainer`` under a ``DistComm`` (a
-  resize changes ``n``); a rank that raises, dies or hangs ends its group
-  with an error in time.  ``autotune=``, ``checkpoint_dir=``,
-  ``make_coded_forward`` and ``CodedServer`` now construct under a
-  ``DistComm`` (``tests/test_torch_dist_serving.py`` runs them).
+- What is refused: ``nccl`` with two ranks on one card, and a world size
+  below 1; a rank that raises, dies or hangs ends its group with an error
+  in time.  What once was refused and now constructs under a
+  ``DistComm``: a world size that does not divide ``n`` (uneven blocks),
+  ``autotune=``, ``checkpoint_dir=``, ``make_coded_forward``,
+  ``CodedServer`` (``tests/test_torch_dist_serving.py`` runs them) and
+  ``ElasticTrainer`` (``tests/test_torch_dist_elastic.py`` runs it, with
+  every collective on uneven and empty blocks).
 - ``python -m repro_torch.launch.train --device cpu --nproc 2
-  --dist-backend gloo`` exits 0 with the final line of ``--nproc 1``.
+  --dist-backend gloo`` exits 0 with the final line of ``--nproc 1``, and
+  so does ``--nproc 3`` on 4 workers (blocks of 1, 1 and 2).
 
 Everything a rank runs is in this file or in the package, and this module
 imports neither JAX nor the reference at its top, so that a rank imports
@@ -151,7 +154,7 @@ def _refusals(device, ckpt_dir):
                                             t1=1.0, t2=1.0))
     cases = {
         "world size does not divide n":
-            lambda: make_dist_comm(3, device=device),
+            lambda: make_dist_comm(3, device=device).workers,
         "autotune": lambda: Trainer(cfg, code, nag(1e-3), device=device,
                                     comm=comm, autotune=AutotunePolicy(),
                                     straggler_source=timed),
@@ -168,8 +171,8 @@ def _refusals(device, ckpt_dir):
     out = {}
     for name, fn in cases.items():
         try:
-            fn()
-            out[name] = (None, "")
+            got = fn()
+            out[name] = (None, repr(got) if isinstance(got, range) else "")
         except Exception as e:               # noqa: BLE001 - reported
             out[name] = (type(e).__name__, str(e))
     return out
@@ -407,27 +410,35 @@ def test_state_digest_sees_a_one_ulp_change(dtype):
 
 
 # ------------------------------------------------------------- refusals
-# the tuners, checkpoints and coded serving were refused until they ran
-# across ranks: their cases now assert that the same calls raise nothing
+# the tuners, checkpoints, coded serving, uneven blocks and the elastic
+# trainer were refused until they ran across ranks: their cases now assert
+# that the same calls raise nothing (the 3 workers of the uneven case split
+# 1 and 2 over the 2 ranks)
 @pytest.mark.parametrize("case,kind,words", [
-    ("world size does not divide n", "ValueError", "do not divide"),
+    ("world size does not divide n", None, "range("),
     ("autotune", None, ""),
     ("checkpoint_dir", None, ""),
-    ("ElasticTrainer", "NotImplementedError", "P divides n"),
+    ("ElasticTrainer", None, ""),
     ("make_coded_forward", None, ""),
     ("CodedServer", None, "")])
 def test_refused_under_a_dist_comm(group2, case, kind, words):
-    for res in group2:
+    for rank, res in enumerate(group2):
         got_kind, msg = res["refusals"][case]
         assert got_kind == kind and words in msg, (got_kind, msg)
-        if case == "ElasticTrainer":
-            assert "A.8.5" in msg and "tun" not in msg, msg
+        if case == "world size does not divide n":
+            assert msg == repr(range(rank * 3 // 2, (rank + 1) * 3 // 2))
 
 
 def test_world_size_that_does_not_divide_n_is_refused_before_a_group():
+    """No world size of at least one rank is refused for its split any
+    more (uneven blocks); what is refused before a group is made is a world
+    size below one."""
     import torch.distributed as dist
-    with pytest.raises(ValueError, match="3 ranks do not divide n=4"):
-        make_dist_comm(4, device="cpu", world_size=3, rank=0,
+    from repro_torch.comm import check_group
+    for ws in (1, 2, 3, 5):
+        check_group(ws, "gloo", torch.device("cpu"))
+    with pytest.raises(ValueError, match="at least one rank, not 0"):
+        make_dist_comm(4, device="cpu", world_size=0, rank=0,
                        init_method="file:///nonexistent/rendezvous")
     assert not dist.is_initialized()
 
@@ -506,6 +517,18 @@ def test_launcher_on_two_ranks_prints_the_single_process_line(capsys):
 
 
 def test_launcher_refuses_a_split_it_cannot_make(capsys):
-    with pytest.raises(ValueError, match="3 ranks do not divide n=4"):
-        tlaunch.main(LAUNCH + ["--nproc", "3"])
-    assert "ranks" not in capsys.readouterr().out
+    """The split it once refused, 4 workers over 3 ranks, now runs in
+    blocks of 1, 1 and 2 and prints the single-process final line."""
+    logs = tlaunch.main(LAUNCH)
+    want = capsys.readouterr().out.splitlines()
+    env = {**os.environ, "PYTHONPATH": str(SRC), "OMP_NUM_THREADS": "1"}
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *LAUNCH,
+         "--nproc", "3", "--dist-backend", "gloo"], capture_output=True,
+        text=True, env=env, timeout=TIMEOUT + 30)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = res.stdout.splitlines()
+    assert got[0] == ("ranks 3 (gloo): rank 0 on cpu workers 0, rank 1 on "
+                      "cpu workers 1, rank 2 on cpu workers 2-3")
+    assert got[-1] == want[-1] and got[-1].startswith("final loss ")
+    assert len(got) == len(want) + 1 and len(logs) == 2
