@@ -5,7 +5,8 @@
 
 Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
 
-  env      versions, and the card's name and power limit from nvidia-smi
+  env      ``repro_torch.bench.capture_env``: versions, the TF32 flags,
+           and the card's name and power limit from nvidia-smi
   build    compiles ``src/repro_torch/kernels/csrc/*.cu`` with nvcc into
            ``build/`` and loads the library
   kernels  holds each CUDA kernel (coded_encode / coded_decode, 2D and 3D;
@@ -23,6 +24,12 @@ Drives ``repro_torch`` only (nothing of the JAX package), on the card only:
            coding kernels also as a run of 64 back-to-back launches and by
            the host's cost a call (200 calls, no sync), beside the launch
            floor (an empty kernel of the library, timed both ways)
+  bench    the harness ``repro_torch.bench`` on the card: the main path's
+           2D encode and in-place 2D encode-acc timed by
+           ``time_callable`` (each at or above 0.9 x its ``time_ms``);
+           a ``BenchResult`` a kernel at its main-path shape, written,
+           loaded back and gated (clean against this run's baseline,
+           caught against a doctored one), in a temporary directory
   checks_packed_small
            ROADMAP C.3 on the card: packed == per-leaf bitwise on the kernel
            backend for the trees [(8,)] and [(8,), (16,)], code (4, 3, 1, 2),
@@ -438,6 +445,14 @@ try:
     import numpy as np
 
     from repro_torch import coding, convert
+    from repro_torch.bench import (BenchResult, TimerPolicy, capture_env,
+                                   load_results, time_callable,
+                                   write_results)
+    from repro_torch.bench import gate as bench_gate
+    from repro_torch.bench.env import nvidia_smi_line
+    from repro_torch.bench.timing import (RUN_LAUNCHES, _union_us,
+                                          host_us_per_call, profile_device,
+                                          time_ms, time_run_ms)
     from repro_torch.configs import get_config
     from repro_torch.core import HeteroCode, make_code
     from repro_torch.data import (CodedBatcher, make_synthetic_batch,
@@ -603,12 +618,10 @@ ENCDEC_LONG_GEN_NEW = 4
 ENCDEC_LONG_GEN_CHECKED = (0, ENCDEC_LONG_GEN_NEW - 1)
 PLAIN_FLASH_REPS = 5           # timed calls of a plain flash version (25
 #                                until the examples phase came in)
-RUN_LAUNCHES = 64              # back-to-back launches of one timed run
 KERNELS_CHECK_CUT = (
     "the timed operands drawn on the card from a seeded CUDA generator, "
     "not on the host and copied, for the script's time (phase dist parts "
     "(e) and (f)); the same shapes, copies and calls")
-HOST_CALLS = 200               # calls of one host-cost measurement
 
 torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls in full f32
 torch.backends.cudnn.allow_tf32 = False
@@ -630,15 +643,6 @@ def say(**obj):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
-
-
-def nvidia_smi_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if res.returncode != 0:
-        fail(f"nvidia-smi: {res.stderr.strip()}")
-    return res.stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------------ kernels
@@ -1294,75 +1298,6 @@ def check_flash_bwd(gen):
     return r
 
 
-def time_ms(fn, reps=25, warmup=5):
-    """Median device time of one call ``fn(i)``: CUDA events around the
-    call, queued behind a spin kernel so the host's enqueue cost is not in
-    the span.  ``i`` counts the calls, so the caller can hand each call
-    another copy of its inputs."""
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn(warmup + len(times))
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def time_run_ms(fn, launches=RUN_LAUNCHES, reps=5, warmup=3):
-    """Median device time per call over a run of ``launches`` back-to-back
-    calls ``fn(i)`` between one pair of CUDA events.  The run is queued
-    behind a spin kernel; if the device reached the run's start before the
-    host had queued all of it (host gaps inside the span), the spin is
-    doubled and the run taken again.  ``i`` keeps counting across runs, so
-    rotating operands never repeat within a cache's reach."""
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    spin, i, times = 4_000_000, warmup, []
-    while len(times) < reps:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(spin)
-        start.record()
-        for _ in range(launches):
-            fn(i)
-            i += 1
-        end.record()
-        covered = not start.query()
-        end.synchronize()
-        if covered:
-            times.append(start.elapsed_time(end) / launches)
-        elif spin > 1 << 32:
-            fail("the host could not queue a run of launches ahead of the card")
-        else:
-            spin *= 2
-    return statistics.median(times)
-
-
-def host_us_per_call(fn, calls=HOST_CALLS, reps=5):
-    """Host microseconds per call of ``fn()``: the host clock over
-    ``calls`` calls with no sync between them, then one sync outside the
-    span (the device's time is not in it unless the launch queue fills);
-    median of ``reps`` such spans, as the host is shared."""
-    fn()
-    torch.cuda.synchronize()
-    spans = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        spans.append(time.perf_counter() - t0)
-        torch.cuda.synchronize()
-    return statistics.median(spans) / calls * 1e6
-
-
 def measure_launch_floor():
     """The launch floor: an empty kernel of the built library (one block,
     no work), timed as one launch and as a run of back-to-back launches,
@@ -1735,56 +1670,13 @@ def _timed_steps(tr, batch, steps):
     return logs
 
 
-def _union_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for a, b in sorted(intervals):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
-
-
 def profile_steps(step, step_ms, label, steps=3):
-    """Where a step's time goes (``step()`` runs one): ``torch.profiler``
-    over a few more steps gives the device-busy time and the kernels that fill it; the idle
-    share is taken against ``step_ms``, the step's wall time measured
-    without the profiler (tracing slows the host many times over).  Busy
-    time is the union of the device activities' intervals over all streams;
-    ``stream_overlap_ms_per_step`` is the time two streams were busy at once
-    (the pipelined step's side stream beside the current one)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    if not rows:
-        fail("torch.profiler recorded no device time")
-    rows.sort(key=lambda r: -r[1])
-    by_stream = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
-            by_stream.setdefault(e.device_resource_id, []).append(
-                (e.time_range.start, e.time_range.end))
-    union_ms = _union_us([iv for ivs in by_stream.values() for iv in ivs]) / 1e3
-    per_stream = {str(k): _union_us(v) / 1e3 / steps for k, v in by_stream.items()}
-    busy_ms = union_ms / steps
-    idle = 1.0 - busy_ms / step_ms
-    say(phase="profile", path=label, steps=steps, step_ms_unprofiled=step_ms,
-        device_busy_ms_per_step=busy_ms,
-        device_kernel_ms_per_step=sum(r[1] for r in rows) / steps,
-        busy_ms_per_step_by_stream=per_stream,
-        stream_overlap_ms_per_step=sum(per_stream.values()) - busy_ms,
-        device_idle_share=idle,
-        top_device_kernels=[{"name": k[:90], "ms_per_step": ms / steps,
-                             "calls_per_step": c / steps}
-                            for k, ms, c in rows[:12]])
-    return idle
+    """Where a step's time goes (``step()`` runs one), by
+    ``repro_torch.bench.timing.profile_device``: says its line under the
+    phase ``profile`` and returns the device's idle share."""
+    prof = profile_device(step, step_ms, steps)
+    say(phase="profile", path=label, **prof)
+    return prof["device_idle_share"]
 
 
 def pipelined_trainer(cfg, code, backend="auto"):
@@ -5581,6 +5473,92 @@ def _train_lm(args, label, cfg, code, opt, spec, batches, phase="train_lm",
     return counts
 
 
+# -------------------------------------------------------------------- bench
+BENCH_SHAPE = (1, 171737, 2)   # the main path's 2D encode: G (d, V, m)
+BENCH_POLICY = TimerPolicy(warmup=5, reps=25)
+BENCH_FLOOR = 0.9              # a synchronised call's wall against time_ms
+BENCH_GATED = {"share_of_bound": "max"}
+
+
+def _bench_result(name, meas, env, stats=None):
+    """One ``BenchResult`` of a kernel at its main-path shape, from
+    ``measure``'s numbers (and ``time_callable``'s, where it was timed so)."""
+    metrics = {k: float(meas[k]) for k in (
+        "ms", "ms_l2_warm", "plain_ms", "library_ms", "bound_ms",
+        "share_of_bound", "achieved_GBps", "achieved_TFLOPps",
+        "ms_per_launch_run", "host_us_per_call") if meas.get(k) is not None}
+    timing = {"device": "CUDA events behind a spin kernel, median",
+              "reps": 25, "warmup": 5, "plain_reps": meas["plain_reps"]}
+    if stats is not None:
+        metrics["wall_ms_per_synced_call"] = stats.mean_s * 1e3
+        timing["time_callable"] = stats.to_dict()
+    return BenchResult(
+        name=f"kernels/{name}", metrics=metrics,
+        params={k: meas[k] for k in ("shape", "dtype", "out_dtype", "bound_by",
+                                     "bytes", "flops", "input_copies")},
+        env=env, timing=timing, gates=dict(BENCH_GATED))
+
+
+def run_bench(main_shapes, smi):
+    """The benchmark harness of ``repro_torch.bench`` on the card: the main
+    path's 2D encode and in-place 2D encode-acc timed by ``time_callable``
+    (a synchronised call's wall, which cannot be shorter than the card's
+    own time, ``kernels_check``'s ``time_ms``; each timed call drops the
+    kernel's result and returns nothing, as an in-place caller may, so only
+    the default sync's wait for the device puts the kernel on the clock);
+    one ``BenchResult`` a kernel at its main-path shape,
+    written with ``write_results`` into a temporary directory and loaded
+    back; the gate against a baseline written from this run (no failure)
+    and against one doctored to a higher ``share_of_bound`` (a failure)."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    stats, walls = {}, {}
+    for name, kind in (("coded_encode_2d", "encode"),
+                       ("coded_encode_acc_2d", "encode_acc")):
+        make, kernel, *_ = _operands(kind, BENCH_SHAPE, None, F32, F32, gen)
+
+        def call(o, kernel=kernel):
+            kernel(o)       # returns nothing: the sync must wait for the card
+
+        stats[name] = time_callable(call, make(), policy=BENCH_POLICY)
+        walls[name] = {"wall_ms_mean": stats[name].mean_s * 1e3,
+                       "wall_ms_min": stats[name].min_s * 1e3,
+                       "wall_ms_max": stats[name].max_s * 1e3,
+                       "time_ms": main_shapes[name]["ms"]}
+        if stats[name].mean_s * 1e3 < BENCH_FLOOR * main_shapes[name]["ms"]:
+            fail(f"bench: time_callable's {name} {stats[name].mean_s * 1e3} "
+                 f"ms a synchronised call is under {BENCH_FLOOR} x the card's "
+                 f"own time {main_shapes[name]['ms']} ms: the sync did not "
+                 f"wait for the card")
+    env = capture_env(device="cuda")
+    results = [_bench_result(name, meas, env, stats.get(name))
+               for name, meas in main_shapes.items()]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_results(results, "chip_smoke_kernels", tmp)
+        loaded = load_results(path)
+        if [(r["name"], r["metrics"]) for r in loaded] != \
+                [(r.name, r.metrics) for r in results]:
+            fail(f"bench: {path.name} did not load back as written")
+        observed = bench_gate.collect_gated(tmp)
+        base_path = pathlib.Path(tmp) / "baseline.json"
+        bench_gate.write_baseline(observed, base_path)
+        baseline = json.loads(base_path.read_text())
+        clean = bench_gate.check(observed, baseline)
+        doctored_name = "kernels/coded_encode_2d"
+        baseline["benches"][doctored_name]["share_of_bound"] *= 2
+        doctored = bench_gate.check(observed, baseline)
+        file_bytes = path.stat().st_size
+    if clean:
+        fail(f"bench: the gate fails against this run's own baseline: {clean}")
+    if len(doctored) != 1 or not doctored[0].startswith(
+            f"{doctored_name}.share_of_bound") or "regressed" not in doctored[0]:
+        fail(f"bench: the gate missed a doctored baseline: {doctored}")
+    say(phase="bench", shape=list(BENCH_SHAPE),
+        policy=dataclasses.asdict(BENCH_POLICY), floor=BENCH_FLOOR,
+        time_callable=walls, results=len(results), results_file_bytes=file_bytes,
+        gated=BENCH_GATED, gate_clean_failures=clean,
+        gate_doctored_failures=doctored, env=env, nvidia_smi=smi)
+
+
 # --------------------------------------------------------------------- main
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -5593,11 +5571,9 @@ def main():
     args = ap.parse_args()
     t_start = time.perf_counter()
 
-    smi = nvidia_smi_line()
-    say(phase="env", python=sys.version.split()[0], torch=torch.__version__,
-        cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
-        nvidia_smi=smi, matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    env = capture_env(device="cuda")
+    smi = env["nvidia_smi"]
+    say(phase="env", **env)
 
     lib = _build.load()
     flash_ptxas = flash_kernels_ptxas(_build.ptxas_report())
@@ -5683,6 +5659,7 @@ def main():
                          "timings": time.perf_counter() - t_measures},
         errors=errs, launch_floor=floor, at_main_path_shapes=main_shapes,
         at_other_shapes=other_shapes)
+    run_bench(main_shapes, smi)
     check_packed_per_leaf_small()
 
     counts = run_main_path(args)

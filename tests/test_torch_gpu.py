@@ -1195,3 +1195,31 @@ def test_reduced_encdec_coded_step_kernels_match_plain_backend():
     for k, v in out["ref"][0].items():
         torch.testing.assert_close(out["hopper"][0][k], v, rtol=1e-4,
                                    atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_time_callable_puts_an_in_place_kernel_on_the_clock():
+    """``time_callable``'s default sync waits for the card even where the
+    call returns nothing: the in-place ``coded_encode_acc`` at the main
+    path's shape takes at least 0.9 x its device time (``time_ms``) a
+    call; ``capture_env`` records the card's name and power limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.bench import TimerPolicy, capture_env, time_callable
+    from repro_torch.bench.timing import time_ms
+    g = torch.Generator(device="cuda").manual_seed(0)
+    G = torch.randn(1, 171737, 2, generator=g, device="cuda")
+    C = torch.randn(1, 2, generator=g, device="cuda")
+    acc = torch.zeros(171737, device="cuda")
+
+    def in_place():
+        coded_encode_acc(acc, G, C)       # returns nothing to wait on
+
+    stats = time_callable(in_place, policy=TimerPolicy(warmup=5, reps=25))
+    device_ms = time_ms(lambda i: in_place())
+    assert stats.mean_s * 1e3 >= 0.9 * device_ms, (stats, device_ms)
+    env = capture_env(device="cuda")
+    assert env["backend"] == "cuda" and env["device_count"] >= 1
+    assert env["device_kind"] == torch.cuda.get_device_name(0)
+    name, limit = (s.strip() for s in env["nvidia_smi"].split(","))
+    assert name and limit.endswith("W"), env["nvidia_smi"]

@@ -32,6 +32,9 @@ def test_every_module_imports_without_jax_or_the_reference():
     assert {"repro_torch.core.approx", "repro_torch.core.stable",
             "repro_torch.core.stability", "repro_torch.core.runtime_model",
             "repro_torch.bench", "repro_torch.bench.straggler",
+            "repro_torch.bench.result", "repro_torch.bench.registry",
+            "repro_torch.bench.gate", "repro_torch.bench.env",
+            "repro_torch.bench.timing",
             "repro_torch.tune.estimator", "repro_torch.tune.planner",
             "repro_torch.tune.policy",
             "repro_torch.tune.arrivals", "repro_torch.elastic",
@@ -192,6 +195,7 @@ def test_example_twins_import_with_jax_and_the_reference_absent():
 
 def _entry_points():
     from repro_torch import coding, comm
+    from repro_torch.bench import capture_env
     from repro_torch.configs import get_config
     from repro_torch.core import make_code
     from repro_torch.models import api
@@ -252,6 +256,7 @@ def _entry_points():
         "launch.train.main": lambda: launch_train.main(["--steps", "1"]),
         "launch.train.main(--nproc 2)": lambda: launch_train.main(
             ["--steps", "1", "--nproc", "2", "--dist-backend", "gloo"]),
+        "capture_env": capture_env,
         "Codec": lambda: coding.Codec(code=code,
                                       schedule=get_schedule("gather"),
                                       backend=TorchRefBackend()),
@@ -278,7 +283,7 @@ def _entry_points():
                                   "models.api.init_cache",
                                   "ElasticTrainer", "launch.train.main",
                                   "launch.train.main(--nproc 2)",
-                                  "Codec"])
+                                  "capture_env", "Codec"])
 def test_default_device_is_the_card_and_never_a_quiet_cpu(name):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
